@@ -1,25 +1,47 @@
-"""Fused inference EdgeConv (BN folded): CUDA kernel wrapper + plain version.
+"""Fused inference EdgeConv (BN folded): CUDA kernel wrappers + plain version.
 
 Port of checkerpose_tpu/ops/pallas_edgeconv.py::edgeconv_fused_pallas:
 
     out[b, n] = max_k leaky(scale * ([x_j - x_i ; x_i] @ W) + bias)
               = max_k leaky(scale * ((x @ W1)[knn[n, k]] + (x @ (W2 - W1))[n]) + bias)
 
-over a static (N, K) KNN graph. `edgeconv_fused` launches the hand-written
-kernel in `csrc/edgeconv.cu` for CUDA tensors and runs
-`edgeconv_fused_plain` for CPU tensors; for a CUDA tensor it launches the
+over a static (N, K) KNN graph. Two hand-written kernels compute it on the
+card, and `edgeconv_route` picks one from the dtype and the shapes alone:
+
+  "tc"   `csrc/edgeconv_tc.cu`: bf16, both projections on the tensor cores
+         (wgmma), x tiles by asynchronous copies (TMA); needs C % 8 == 0 and
+         a graph whose y = x @ W1 chunk fits in shared memory beside its tiles;
+  "fma"  `csrc/edgeconv.cu`: f32 FMA on the CUDA cores, for f32 inputs and
+         for bf16 shapes the tensor-core kernel does not take.
+
+`edgeconv_fused` launches one of them for CUDA tensors and runs
+`edgeconv_fused_plain` for CPU tensors only; for a CUDA tensor it launches a
 kernel or raises, with no fallback. `edgeconv_fused.launches` counts kernel
-launches (never the plain version's calls).
+launches (never the plain version's calls) and
+`edgeconv_fused.launches_by_route` splits that count by route.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from checkerpose_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# Shared-memory constants, mirrored from the two .cu sources (a card test
+# holds these figures against the C functions).
+MAX_SMEM = 232448                   # bytes of shared memory a block may use
+_FMA_CB, _FMA_TN, _FMA_TK = 32, 128, 32
+TC_TILE = 64                        # rows, k-columns and channels of a tile
+_TC_TILE_BYTES = TC_TILE * TC_TILE * 2
+_TC_ALIGN = 1024                    # swizzled tiles start on 1024-byte lines
+_TC_ZS_STRIDE = TC_TILE + 8         # padded f32 row of the z staging tile
+_TC_BAR_BYTES = 256                 # the ring's and the W chunk's mbarriers
+TC_MIN_STAGES, TC_MAX_STAGES = 3, 8
 
 
 def edgeconv_fused_plain(x, knn, w1, w2m1, scale, bias, slope: float = 0.2):
@@ -32,6 +54,82 @@ def edgeconv_fused_plain(x, knn, w1, w2m1, scale, bias, slope: float = 0.2):
     e = e * scale.float() + bias.float()
     e = torch.where(e >= 0, e, e * slope)
     return e.amax(dim=2).to(x.dtype)
+
+
+def _ceil_to(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def fma_smem_bytes(N: int, K: int) -> int:
+    """Dynamic shared memory of one block of the FMA kernel: its y chunk,
+    z tile, x tile, W tile (f32) and the knn table (int32)."""
+    return 4 * (N * _FMA_CB + _FMA_TN * _FMA_CB + _FMA_TN * (_FMA_TK + 1)
+                + _FMA_TK * _FMA_CB) + 4 * N * K
+
+
+def _tc_fixed_bytes(N: int, C: int) -> int:
+    """Alignment slack, the W chunk of one projection, the f32 y chunk for
+    all N nodes, the z staging tile and the mbarriers."""
+    return (_TC_ALIGN + _ceil_to(C, TC_TILE) // TC_TILE * _TC_TILE_BYTES
+            + _ceil_to(N, TC_TILE) * TC_TILE * 4 + TC_TILE * _TC_ZS_STRIDE * 4
+            + _TC_BAR_BYTES)
+
+
+def tc_stages(N: int, C: int) -> int:
+    """Stages of the tensor-core kernel's ring of x tiles: what is left of
+    a block's shared memory after the fixed part, in 8 KB tiles, at most
+    TC_MAX_STAGES.
+    Below TC_MIN_STAGES the kernel does not take the shape."""
+    return max(0, min(TC_MAX_STAGES, (MAX_SMEM - _tc_fixed_bytes(N, C)) // _TC_TILE_BYTES))
+
+
+def tc_smem_bytes(N: int, C: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core kernel, ring
+    included; 0 where the shape does not fit."""
+    stages = tc_stages(N, C)
+    if stages < TC_MIN_STAGES:
+        return 0
+    return _tc_fixed_bytes(N, C) + stages * _TC_TILE_BYTES
+
+
+def _tc_takes(dtype, N: int, C: int) -> bool:
+    """bf16, x rows on 16-byte lines, and a ring of at least 3 stages."""
+    return dtype == torch.bfloat16 and C % 8 == 0 and tc_stages(N, C) >= TC_MIN_STAGES
+
+
+def edgeconv_route(dtype, N: int, K: int, C: int, Cp: int) -> str:
+    """Which kernel takes x (B, N, C) of `dtype` on a (N, K) graph with C'
+    = Cp output channels: "tc" or "fma". Raises ValueError where neither
+    does. Pure Python: no card needed."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    if _tc_takes(dtype, N, C):
+        return "tc"
+    smem = fma_smem_bytes(N, K)
+    if smem <= MAX_SMEM:
+        return "fma"
+    raise ValueError(f"N={N}, K={K}, C={C} {dtype}: the FMA kernel needs {smem} B of shared "
+                     f"memory, above the {MAX_SMEM} B a block can use, and the "
+                     f"tensor-core kernel does not take the shape either")
+
+
+def pack_edgeconv_weights(w1, w2m1):
+    """[W1 | W2-W1] in the layout the tensor-core kernel reads: K-major
+    (transposed) 64x64 tiles, zero-padded, shape (2, ceil(C'/64),
+    ceil(C/64), 64 channels, 64 k), so the tiles of one 64-channel chunk of
+    one projection are contiguous. Keeps the dtype."""
+    C, Cp = w1.shape
+    w = torch.stack([w1, w2m1])                                      # (2, C, C')
+    w = F.pad(w, (0, _ceil_to(Cp, TC_TILE) - Cp, 0, _ceil_to(C, TC_TILE) - C))
+    w = w.view(2, w.shape[1] // TC_TILE, TC_TILE, w.shape[2] // TC_TILE, TC_TILE)
+    return w.permute(0, 3, 1, 4, 2).contiguous()                     # (2, chunk, ks, c', k)
+
+
+def unpack_edgeconv_weights(packed, C: int, Cp: int):
+    """(w1, w2m1) of shape (C, C') back out of `pack_edgeconv_weights`."""
+    w = packed.permute(0, 2, 4, 1, 3).reshape(2, packed.shape[2] * TC_TILE,
+                                              packed.shape[1] * TC_TILE)
+    return w[0, :C, :Cp].contiguous(), w[1, :C, :Cp].contiguous()
 
 
 def _check(x, knn, w1, w2m1, scale, bias, slope):
@@ -64,50 +162,112 @@ def _check(x, knn, w1, w2m1, scale, bias, slope):
         raise ValueError("all tensors must be contiguous")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("edgeconv")
+def _check_packed(packed, x, C, Cp):
+    shape = (2, _ceil_to(Cp, TC_TILE) // TC_TILE, _ceil_to(C, TC_TILE) // TC_TILE,
+             TC_TILE, TC_TILE)
+    if (tuple(packed.shape) != shape or packed.dtype != x.dtype
+            or packed.device != x.device or not packed.is_contiguous()):
+        raise ValueError(f"packed must be contiguous {x.dtype} {shape} on {x.device} "
+                         f"(pack_edgeconv_weights), got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {packed.device}")
+
+
+def _typed(lib: ctypes.CDLL, route: str) -> ctypes.CDLL:
+    """Declare the C functions' argument and result types, once per library."""
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.edgeconv_fused_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i,
-                                              ctypes.c_float, p]
-        lib.edgeconv_fused_launch.restype = i
-        lib.edgeconv_fused_smem_bytes.argtypes = [i, i]
-        lib.edgeconv_fused_smem_bytes.restype = ctypes.c_size_t
-        lib.edgeconv_fused_max_smem_bytes.argtypes = []
-        lib.edgeconv_fused_max_smem_bytes.restype = ctypes.c_size_t
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if route == "tc":
+            lib.edgeconv_tc_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.edgeconv_tc_launch.restype = i
+            lib.edgeconv_tc_smem_bytes.argtypes = [i, i]
+            lib.edgeconv_tc_smem_bytes.restype = ctypes.c_size_t
+            lib.edgeconv_tc_stages.argtypes = [i, i]
+            lib.edgeconv_tc_stages.restype = i
+        else:
+            lib.edgeconv_fused_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.edgeconv_fused_launch.restype = i
+            lib.edgeconv_fused_smem_bytes.argtypes = [i, i]
+            lib.edgeconv_fused_smem_bytes.restype = ctypes.c_size_t
+            lib.edgeconv_fused_max_smem_bytes.argtypes = []
+            lib.edgeconv_fused_max_smem_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
 
-def edgeconv_fused(x, knn, w1, w2m1, scale, bias, slope: float = 0.2):
+def _lib(route: str) -> ctypes.CDLL:
+    """The typed library of a route, built at first use."""
+    return _typed(_build.load("edgeconv_tc" if route == "tc" else "edgeconv"), route)
+
+
+def _launch(route: str, x, knn, w1, w2m1, scale, bias, slope: float = 0.2, packed=None):
+    """Launch the kernel of `route` on checked CUDA inputs and count it;
+    raises where that kernel does not take the call. `edgeconv_fused` picks
+    the route; chip_smoke.py and the card tests call this to hold each kernel
+    against the plain version on the same inputs."""
+    B, N, C = x.shape
+    K, Cp = knn.shape[1], w1.shape[1]
+    if route == "tc":
+        if not _tc_takes(x.dtype, N, C) or x.data_ptr() % 16:
+            raise ValueError(f"the tensor-core kernel takes bf16 on a 16-byte line with "
+                             f"C % 8 == 0 and a graph that fits its shared memory, got "
+                             f"{x.dtype} N={N} C={C}")
+        if packed is None:
+            packed = pack_edgeconv_weights(w1, w2m1)
+    else:
+        smem = fma_smem_bytes(N, K)
+        if smem > MAX_SMEM:
+            raise ValueError(f"N={N}, K={K} needs {smem} B of shared memory, "
+                             f"above the {MAX_SMEM} B a block can use")
+        if B > 65535:
+            raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
+
+    lib = _lib(route)
+    out = torch.empty((B, N, Cp), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "tc":
+            err = lib.edgeconv_tc_launch(
+                x.data_ptr(), knn.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), B, N, C, Cp, K, float(slope), stream)
+        else:
+            err = lib.edgeconv_fused_launch(
+                int(x.dtype == torch.bfloat16), x.data_ptr(), knn.data_ptr(),
+                w1.data_ptr(), w2m1.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), B, N, C, Cp, K, float(slope), stream)
+    if err != 0:
+        raise RuntimeError(f"edgeconv_fused ({route}) kernel launch failed: CUDA error {err}")
+    edgeconv_fused.launches += 1
+    edgeconv_fused.launches_by_route[route] += 1
+    return out
+
+
+def edgeconv_fused(x, knn, w1, w2m1, scale, bias, slope: float = 0.2,
+                   packed: Optional[torch.Tensor] = None):
     """x (B, N, C) f32/bf16; knn (N, K) int32 with entries in [0, N);
     w1, w2m1 (C, C') of x's dtype; scale, bias (C',) f32. Returns (B, N, C')
-    of x's dtype."""
+    of x's dtype.
+
+    `packed` is `pack_edgeconv_weights(w1, w2m1)` where the caller keeps it
+    (the tensor-core kernel reads it; without it the weights are packed on
+    every call)."""
     _check(x, knn, w1, w2m1, scale, bias, slope)
+    B, N, C = x.shape
+    K, Cp = knn.shape[1], w1.shape[1]
+    if packed is not None:
+        _check_packed(packed, x, C, Cp)
     if x.device.type == "cpu":
         return edgeconv_fused_plain(x, knn, w1, w2m1, scale, bias, slope)
     if x.device.type != "cuda":
         raise ValueError(f"edgeconv_fused runs on cuda or cpu tensors, got {x.device}")
-    B, N, C = x.shape
-    K, Cp = knn.shape[1], w1.shape[1]
-    lib = _lib()
-    smem = lib.edgeconv_fused_smem_bytes(N, K)
-    if smem > lib.edgeconv_fused_max_smem_bytes():
-        raise ValueError(f"N={N}, K={K} needs {smem} B of shared memory, "
-                         f"above the {lib.edgeconv_fused_max_smem_bytes()} B a block can use")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
-    out = torch.empty((B, N, Cp), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.edgeconv_fused_launch(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), knn.data_ptr(),
-            w1.data_ptr(), w2m1.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, N, C, Cp, K, float(slope), stream)
-    if err != 0:
-        raise RuntimeError(f"edgeconv_fused kernel launch failed: CUDA error {err}")
-    edgeconv_fused.launches += 1
-    return out
+    route = edgeconv_route(x.dtype, N, K, C, Cp)
+    if route == "tc" and x.data_ptr() % 16:          # a view off a 16-byte line
+        route = "fma"
+    return _launch(route, x, knn, w1, w2m1, scale, bias, slope, packed)
 
 
-edgeconv_fused.launches = 0
+def reset_launch_counts():
+    edgeconv_fused.launches = 0
+    edgeconv_fused.launches_by_route = {"tc": 0, "fma": 0}
+
+
+reset_launch_counts()

@@ -130,20 +130,31 @@ def test_chip_smoke_phases_rehearsed_on_cpu():
     dev = torch.device("cpu")
     rows = chip_smoke.phase_kernels(dev, B=1, N=32, K=4, widths=(64, 256), iters=1,
                                     plain_iters=1)
-    assert len(rows) == 4 and all(r["ms"] is None for r in rows)
+    # 2 widths + 1 ragged shape, each through tc/bf16, fma/f32 and fma/bf16
+    assert len(rows) == 9 and all(r["ms"] is None for r in rows)
+    assert sum(r["ragged"] for r in rows) == 3
+    assert sorted({(r["kernel"], r["dtype"]) for r in rows}) == [
+        ("fma", "bfloat16"), ("fma", "float32"), ("tc", "bfloat16")]
     serving = chip_smoke.phase_serving(dev, batch=2, npoint=NPT, backbone="hrnet_w18_small",
                                        warm=1, iters=1)
     assert serving["edgeconv_launches"] == 0 and serving["crops_per_s"] is None
+    assert serving["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}
     ref = chip_smoke.phase_reference(dev, npoint=NPT, backbone="hrnet_w18_small")
     assert ref["f32"]["x_id"] == 1.0
+    assert ref["f32"]["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}
     oracle = chip_smoke.phase_oracle(dev, batch=8, npoint=64)
     assert oracle["max_rot_err_deg"] < 3.0
-    (entry,) = chip_smoke.kernel_summary(rows, serving["edgeconv_launches"])
-    for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms"):
-        assert key in entry
-    assert (ROOT / entry["source"]).exists()
-    assert entry["bound_by"] == "bytes"
+    tc, fma = chip_smoke.kernel_summary(rows, {"tc": 0, "fma": 0})
+    for entry in (tc, fma):
+        for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            assert key in entry
+        assert (ROOT / entry["source"]).exists()
+        assert entry["ms"] is None and entry["plain_ms"] is None   # no time off the card
+    assert tc["source"] != fma["source"] and tc["name"] != fma["name"]
+    assert tc["bound_by"] == "bytes"             # bf16: x and out over the HBM rate
+    # f32 at the main path's size: the projections over the FMA rate
+    assert chip_smoke.edgeconv_bound_ms(512, 512, 20, 256, 256, torch.float32)[1] == "operations"
     if not torch.cuda.is_available():
         assert chip_smoke.main([]) == 1          # the script refuses the CPU
 

@@ -5,7 +5,8 @@ its counterpart's path and class names and is held against it by the parity
 tests in `tests/test_torch_*.py`. This package imports torch and never jax.
 
 Entry points (`serving.ServingPipeline`, `models.posenet.make_posenet`,
-`solver.ransac.solve_poses_batched`) take `device="cuda"` by default and raise
+`solver.ransac.solve_poses_batched`, `train.state.create_init_state`,
+`train.state.create_pose_state`) take `device="cuda"` by default and raise
 when no card is present; the CPU is used only when the caller passes
 `device="cpu"`.
 """

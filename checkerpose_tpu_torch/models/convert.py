@@ -14,6 +14,11 @@ checkerpose_tpu/models/convert.py's torch -> Flax rules):
   batch_stats mean / var                   -> running_mean / running_var
 
 Every leaf is consumed in both directions; an unknown leaf raises.
+
+The optimizer's state crosses too: optax Adam's `(count, mu, nu)`, given as
+numpy trees with the params' structure, <-> `torch.optim.Adam.state_dict()`
+(`adam_state_to_torch`, `adam_state_to_flax`), so that a run can be compared
+with the JAX package beyond its first step.
 """
 from __future__ import annotations
 
@@ -32,6 +37,12 @@ def _leaves(tree: Mapping, prefix=()):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), np.asarray(v)
+
+
+def _tensor(v: np.ndarray) -> torch.Tensor:
+    """A contiguous f32 tensor that owns its memory (the source may be a
+    read-only view of a device array)."""
+    return torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
 
 
 def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -55,13 +66,13 @@ def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
             name = "bias"
         else:
             raise KeyError(f"unknown params leaf {'/'.join(path)}")
-        sd[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+        sd[".".join(path[:-1] + (name,))] = _tensor(v)
     stat_names = {"mean": "running_mean", "var": "running_var"}
     for path, v in _leaves(variables.get("batch_stats", {})):
         if path[-1] not in stat_names:
             raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
         key = ".".join(path[:-1] + (stat_names[path[-1]],))
-        sd[key] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+        sd[key] = _tensor(v)
     return sd
 
 
@@ -102,3 +113,50 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         else:
             raise KeyError(f"unknown state_dict entry {key}")
     return {"params": params, "batch_stats": stats}
+
+
+def _param_names(module: torch.nn.Module):
+    return [name for name, _ in module.named_parameters()]
+
+
+def adam_state_to_torch(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                        count: int, mu: Mapping, nu: Mapping) -> None:
+    """Load optax Adam's state into `optimizer` (built over
+    `module.parameters()`, one param group): `count` updates made, first and
+    second moments `mu` / `nu` as Flax params trees of numpy arrays. A
+    two-phase optimizer (train/state.py::TwoPhaseAdam) also gets its count."""
+    m_sd = flax_to_torch({"params": mu})
+    v_sd = flax_to_torch({"params": nu})
+    names = _param_names(module)
+    if set(names) != set(m_sd) or set(names) != set(v_sd):
+        raise KeyError(f"moments do not match the module's parameters: "
+                       f"{sorted(set(names) ^ set(m_sd))[:5]}")
+    sd = optimizer.state_dict()
+    if len(sd["param_groups"]) != 1 or len(sd["param_groups"][0]["params"]) != len(names):
+        raise ValueError("the optimizer must hold module.parameters() in one param group")
+    sd["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": m_sd[n],
+                       "exp_avg_sq": v_sd[n]} for i, n in enumerate(names)}
+    if "count" in sd["param_groups"][0]:
+        sd["param_groups"][0]["count"] = int(count)
+    optimizer.load_state_dict(sd)
+
+
+def adam_state_to_flax(module: torch.nn.Module, optimizer: torch.optim.Optimizer):
+    """(count, mu, nu) of optax Adam out of `optimizer`: the number of
+    updates made and the two moments as Flax params trees of numpy f32. An
+    optimizer that has made no update gives count 0 and zero moments."""
+    names = _param_names(module)
+    state = optimizer.state_dict()["state"]
+    params = dict(module.named_parameters())
+    count, m_sd, v_sd = 0, {}, {}
+    for i, n in enumerate(names):
+        s = state.get(i)
+        if s is None:
+            m_sd[n] = v_sd[n] = torch.zeros_like(params[n])
+        else:
+            count = int(s["step"])
+            m_sd[n], v_sd[n] = s["exp_avg"], s["exp_avg_sq"]
+    # BatchNorm weights are told from kernels by their running statistics
+    stats = {k: v for k, v in module.state_dict().items() if k.endswith("running_mean")}
+    return (count, torch_to_flax({**m_sd, **stats})["params"],
+            torch_to_flax({**v_sd, **stats})["params"])

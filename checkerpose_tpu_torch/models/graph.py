@@ -1,10 +1,16 @@
-"""EdgeConv over a static keypoint KNN graph, inference only (counterpart of
+"""EdgeConv over a static keypoint KNN graph (counterpart of
 checkerpose_tpu/models/graph.py::EdgeConv).
 
-concat([x_j - x_i, x_i]) -> Dense (no bias) -> BN -> LeakyReLU -> max_K,
-always through the fused op (ops/edgeconv.py) with BN folded. Features are
-channel-last (B, N, C), like the JAX package. The Dense kernel keeps the
-Flax name `conv`.
+concat([x_j - x_i, x_i]) -> Dense (no bias) -> BN -> LeakyReLU -> max_K.
+Features are channel-last (B, N, C), like the JAX package. The Dense kernel
+keeps the Flax name `conv`. `train()` / `eval()` decides the path:
+
+  eval   the fused op (ops/edgeconv.py::edgeconv_fused, a CUDA kernel on the
+         card) with BN's running statistics folded into a scale and a bias;
+  train  the per-node form in plain PyTorch (ops/edgeconv.py::edgeconv_train)
+         with batch-statistics BN over the whole (B, N, K, C') edge tensor,
+         as the JAX package trains outside its kernel; autograd gives the
+         backward.
 
 In eval mode the folded and packed weights are computed once and kept. The
 key holds each source tensor's identity, storage address and version counter,
@@ -23,7 +29,8 @@ import torch
 import torch.nn as nn
 
 from checkerpose_tpu_torch.models.layers import BatchNorm, Dense
-from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, pack_edgeconv_weights
+from checkerpose_tpu_torch.ops.edgeconv import (edgeconv_fused, edgeconv_train,
+                                                pack_edgeconv_weights)
 
 
 class EdgeConv(nn.Module):
@@ -37,16 +44,18 @@ class EdgeConv(nn.Module):
         self._fused_cache = None
         self.folds = 0                   # times the weights were folded and packed
 
-    def folded(self):
-        """(w1, w2m1, scale, bias) of the fused op: with the Flax kernel
-        W = [W1; W2] (2C, C'), w1 = W1 and w2m1 = W2 - W1 (difference taken
-        in f32, then cast), and BN folded to an f32 scale and bias."""
+    def split_weights(self):
+        """(w1, w2m1): with the Flax kernel W = [W1; W2] (2C, C'), w1 = W1
+        and w2m1 = W2 - W1 (difference taken in f32, then cast)."""
         k = self.conv.weight.float().t()
         C = k.shape[0] // 2
-        w1 = k[:C].to(self.dtype).contiguous()
-        w2m1 = (k[C:] - k[:C]).to(self.dtype).contiguous()
+        return k[:C].to(self.dtype).contiguous(), (k[C:] - k[:C]).to(self.dtype).contiguous()
+
+    def folded(self):
+        """(w1, w2m1, scale, bias) of the fused op: the split weights and BN
+        folded to an f32 scale and bias."""
         scale, bias = self.bn.folded()
-        return w1, w2m1, scale.contiguous(), bias.contiguous()
+        return *self.split_weights(), scale.contiguous(), bias.contiguous()
 
     def fused_args(self):
         """`folded()` plus the weights packed for the tensor-core kernel
@@ -77,15 +86,16 @@ class EdgeConv(nn.Module):
         self._fused_cache = None
         return super()._apply(fn, *args, **kwargs)
 
-    def forward(self, x, knn_idx, train: bool = False):
+    def forward(self, x, knn_idx):
         """x (B, N, C); knn_idx static (N, K) int32 on x's device."""
-        if train:
-            raise NotImplementedError(
-                "training EdgeConv is not ported yet (ROADMAP.md, training slice)")
         if knn_idx.dim() != 2:
             raise ValueError(
                 "per-sample (B, N, K) graphs belong to the LM variant, which is "
-                "not ported yet (ROADMAP.md); pass a static (N, K) graph")
+                "not ported yet (ROADMAP.md, queue 1); pass a static (N, K) graph")
+        x = x.to(self.dtype)
+        if self.training:
+            w1, w2m1 = self.split_weights()
+            return edgeconv_train(x, knn_idx, w1, w2m1, self.bn, self.leaky_slope)
         w1, w2m1, scale, bias, packed = self.fused_args()
-        return edgeconv_fused(x.to(self.dtype).contiguous(), knn_idx, w1, w2m1,
+        return edgeconv_fused(x.contiguous(), knn_idx, w1, w2m1,
                               scale, bias, self.leaky_slope, packed=packed)

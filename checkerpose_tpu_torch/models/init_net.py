@@ -24,6 +24,7 @@ class InitNet(nn.Module):
                  num_conv1x1: int = 1, num_graph_module: int = 2,
                  graph_leaky_slope: float = 0.2, dtype=torch.bfloat16):
         super().__init__()
+        self.res_log2 = res_log2
         self.num_conv1x1 = num_conv1x1
         self.num_graph_module = num_graph_module
         self.dtype = dtype
@@ -41,7 +42,10 @@ class InitNet(nn.Module):
         """img (B, 3, H, W) normalized; knn_idx (N, K) int32.
 
         Returns (bits (B, N, 1+2*res_log2) f32, feats list (NCHW),
-        graph_feat (B, N, 64))."""
+        graph_feat (B, N, 64), resp_map (B, N, 64)). resp_map is each
+        keypoint's 8x8 response map before the graph, the logits of the
+        auxiliary heatmap loss (train/steps.py::_aux_heatmap_loss; the JAX
+        package sows it as an intermediate)."""
         feats = self.backbone(img.to(self.dtype))
         x = self.conv1x1_0(feats[-1])
         for i in range(1, self.num_conv1x1):
@@ -49,8 +53,8 @@ class InitNet(nn.Module):
         # (B, N, H, W) -> (B, N, H*W): each keypoint's own map, row-major,
         # the order of the JAX (B,H,W,N) -> (B,N,H,W) -> (B,N,H*W) reshape
         B, N, H, W = x.shape
-        g = x.reshape(B, N, H * W)
+        resp_map = g = x.reshape(B, N, H * W)
         for i in range(self.num_graph_module):
             g = getattr(self, f"graph_{i}")(g, knn_idx)
         bits = self.mlp(g.float())
-        return bits, feats, g
+        return bits, feats, g, resp_map

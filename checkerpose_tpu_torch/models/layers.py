@@ -4,7 +4,9 @@ Counterpart of checkerpose_tpu/models/layers.py. Module and parameter names
 follow the Flax tree so that models/convert.py maps leaves by path. Precision
 is explicit, as Flax's `dtype=` is: each conv and dense layer casts its input
 and its f32 parameters to `dtype`; BatchNorm computes in f32 (eps 1e-5) and
-the caller casts back. Inference only: BatchNorm always uses running stats.
+the caller casts back. `nn.Module.train()` / `eval()` decides BatchNorm's mode:
+batch statistics with Flax's formula and running-stat update in train mode,
+running statistics in eval mode.
 
 Initialisation follows the Flax defaults: lecun-normal kernels (truncated
 normal, fan-in scaling), zero biases, BN scale 1 / bias 0 / mean 0 / var 1.
@@ -140,8 +142,18 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm in f32 over `channel_dim` (Flax's formula:
-    (x - mean) * scale * rsqrt(var + eps) + bias). Returns f32."""
+    """Flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)` over
+    `channel_dim`: (x - mean) * scale * rsqrt(var + eps) + bias in f32 (in
+    f64 for an f64 input). Returns that dtype.
+
+    Eval mode reads the running statistics. Train mode takes the statistics
+    of the batch over every other axis, in f32, with Flax's fast variance
+    var = max(0, mean(x^2) - mean(x)^2); it normalises with that biased
+    variance and stores it: running = 0.9 * running + 0.1 * batch, in place
+    and outside the graph. (`F.batch_norm` stores the unbiased variance, and
+    its `momentum` is one minus Flax's.)"""
+
+    momentum = 0.9
 
     def __init__(self, num: int, eps: float = 1e-5):
         super().__init__()
@@ -158,15 +170,29 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def folded(self):
-        """(scale, bias) f32 with BN(x) = x * scale + bias."""
+        """(scale, bias) f32 with BN(x) = x * scale + bias, from the running
+        statistics."""
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         return scale, self.bias.float() - self.running_mean.float() * scale
 
     def forward(self, x, channel_dim: int = 1):
         shape = [1] * x.dim()
         shape[channel_dim] = -1
-        mul = (torch.rsqrt(self.running_var + self.eps) * self.weight).view(shape)
-        return (x.float() - self.running_mean.view(shape)) * mul + self.bias.view(shape)
+        dtype = torch.promote_types(x.dtype, torch.float32)        # f32 at least, as Flax
+        if not self.training:
+            # one expression: no name keeps the f32 copy of x alive past the
+            # subtraction (a third of the peak memory of a serving batch)
+            mul = (torch.rsqrt(self.running_var + self.eps) * self.weight).view(shape)
+            return (x.to(dtype) - self.running_mean.view(shape)) * mul + self.bias.view(shape)
+        x = x.to(dtype)
+        dims = [d for d in range(x.dim()) if d != channel_dim % x.dim()]
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        mul = (torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        return (x - mean.view(shape)) * mul + self.bias.view(shape)
 
 
 class ConvBNAct(nn.Module):

@@ -1,4 +1,4 @@
-"""Full progressive pose network, inference only (counterpart of
+"""Full progressive pose network (counterpart of
 checkerpose_tpu/models/posenet.py).
 
 The init net produces coarse 8x8 codes; each refinement step doubles the
@@ -6,6 +6,10 @@ resolution (8->16->32->64), gathers per-keypoint local features at the
 current integer cells, runs an EdgeConv stack and emits one new x bit and one
 new y bit per keypoint. Images enter NHWC (as in the JAX package) and run
 NCHW inside; keypoint outputs are (B, N, .) and seg_logits is NHWC.
+
+`train()` / `eval()` decides the mode of every BatchNorm and EdgeConv. The
+location updates are hard and carry no gradient: the `.detach()` calls stand
+where the JAX package has `stop_gradient`.
 """
 from __future__ import annotations
 
@@ -26,12 +30,12 @@ from checkerpose_tpu_torch.ops.knn import check_knn
 
 
 def _hard_bit(logits: torch.Tensor) -> torch.Tensor:
-    """logits -> int32 {0,1}; sigmoid(x) > 0.5 <=> x > 0."""
-    return (logits > 0.0).to(torch.int32)
+    """Detached logits -> int32 {0,1}; sigmoid(x) > 0.5 <=> x > 0."""
+    return (logits.detach() > 0.0).to(torch.int32)
 
 
 def _hard_ids(logits: torch.Tensor) -> torch.Tensor:
-    """MSB-first bit logits (B, N, L) -> integer ids (B, N) int32."""
+    """Detached MSB-first bit logits (B, N, L) -> integer ids (B, N) int32."""
     bits = _hard_bit(logits)
     L = bits.shape[-1]
     w = 1 << (L - 1 - torch.arange(L, dtype=torch.int32, device=logits.device))
@@ -139,10 +143,16 @@ class PoseNet(nn.Module):
                  seg_output_dim: int = 2, local_k: int = 2, leaky_slope: float = 0.01,
                  num_graph_module: int = 2, graph_leaky_slope: float = 0.2,
                  init_num_conv1x1: int = 1, init_num_graph_module: int = 2,
-                 init_graph_leaky_slope: float = 0.2, dtype=torch.bfloat16):
+                 init_graph_leaky_slope: float = 0.2, aux_refine_heads: bool = False,
+                 dtype=torch.bfloat16):
+        """aux_refine_heads: one 1x1 conv to npoint channels on each UpBlock
+        output (`aux_resp_{i}`, in the state_dict only when asked for), whose
+        per-keypoint response maps feed the auxiliary refine heatmap loss
+        (train/steps.py::_aux_refine_loss). They run in train mode only."""
         super().__init__()
         self.npoint = npoint
         self.res_log2 = res_log2
+        self.aux_refine_heads = aux_refine_heads
         self.dtype = dtype
         self.init_net = InitNet(npoint, 3, backbone_name, init_num_conv1x1,
                                 init_num_graph_module, init_graph_leaky_slope, dtype=dtype)
@@ -153,6 +163,9 @@ class PoseNet(nn.Module):
             self.add_module(f"refine_{i}", RefineBlock(
                 num_filters, 64 if i == 0 else query_dims[0], query_dims,
                 local_k, leaky_slope, num_graph_module, graph_leaky_slope, dtype=dtype))
+            if aux_refine_heads:
+                self.add_module(f"aux_resp_{i}", Conv2d(num_filters, npoint, 1, bias=True,
+                                                        dtype=dtype))
         self.seg_block = Conv2d(num_filters, seg_output_dim, 1, bias=True,
                                 dtype=torch.float32)
 
@@ -164,21 +177,27 @@ class PoseNet(nn.Module):
         return 3 + (self.num_refine_steps if stage is None else stage)
 
     def forward(self, img, knn_idx, p3d_normed=None, stage: Optional[int] = None,
-                train: bool = False):
+                tf_gather=None):
         """img (B, H, W, 3) normalized NHWC; knn_idx (N, K) int32 on img's
         device; p3d_normed is unused (the query MLP ignores the 3D points).
 
         Returns dict: roi_logit (B, N, 1), x_logits / y_logits (B, N, 3+stage)
         f32, seg_logits (B, h, w, seg_output_dim) f32, x_id / y_id (B, N)
-        int32 at resolution 2**(3 + stage)."""
-        if train:
-            raise NotImplementedError("PoseNet training is not ported yet "
-                                      "(ROADMAP.md, training slice)")
+        int32 at resolution 2**(3 + stage). In train mode also resp_map
+        (B, N, 64), the init net's per-keypoint response maps, and, with
+        aux_refine_heads, refine_resp_{i} (B, N, H*W) per active stage.
+
+        tf_gather (train mode only, ignored in eval): teacher-forced refine
+        conditioning, a tuple (gt_x_id, gt_y_id, gt_roi, sel) with gt ids
+        (B, N) int32 at 2**res_log2 resolution, gt_roi (B, N, 1) f32 and
+        sel (B, N) bool. For selected keypoints every refine gather reads
+        the GT cell (its MSB prefix at that stage's resolution) instead of
+        the predicted one; the running predicted ids are unchanged."""
         num_active = self.num_refine_steps if stage is None else stage
         if not 1 <= num_active <= self.num_refine_steps:
             raise ValueError(f"stage must be in [1, {self.num_refine_steps}], got {stage}")
         x = img.permute(0, 3, 1, 2)
-        bits, feats, graph_feat = self.init_net(x, knn_idx)
+        bits, feats, graph_feat, resp_map = self.init_net(x, knn_idx)
         if tuple(feats[-1].shape[2:]) != (8, 8):
             raise ValueError(
                 f"PoseNet refine stages require an 8x8 init feature map "
@@ -186,25 +205,43 @@ class PoseNet(nn.Module):
         roi_logit = bits[..., 0:1]
         x_logits = bits[..., 1:4]
         y_logits = bits[..., 4:7]
-        roi_mask = (roi_logit > 0.0).float()
+        roi_mask = (roi_logit.detach() > 0.0).float()
         x_id = _hard_ids(x_logits)
         y_id = _hard_ids(y_logits)
+
+        out = {}
+        use_tf = self.training and tf_gather is not None
+        if use_tf:
+            gt_x_full, gt_y_full, gt_roi, tf_sel = tf_gather
+        if self.training:
+            out["resp_map"] = resp_map
 
         img_feat = feats[-1]
         for i in range(num_active):
             if i > 0:
                 img_feat = torch.cat([img_feat, feats[-i - 1].to(img_feat.dtype)], dim=1)
             img_feat = getattr(self, f"up_{i}")(img_feat)
+            if self.aux_refine_heads and self.training:
+                r = getattr(self, f"aux_resp_{i}")(img_feat)            # (B, N, H, W)
+                out[f"refine_resp_{i}"] = r.flatten(2)
+            if use_tf:
+                shift = self.res_log2 - (3 + i)
+                g_x = torch.where(tf_sel, gt_x_full >> shift, x_id)
+                g_y = torch.where(tf_sel, gt_y_full >> shift, y_id)
+                g_roi = torch.where(tf_sel[..., None], gt_roi, roi_mask)
+            else:
+                g_x, g_y, g_roi = x_id, y_id, roi_mask
             new_bits, graph_feat = getattr(self, f"refine_{i}")(
-                img_feat, graph_feat, roi_mask, x_id, y_id, knn_idx)
+                img_feat, graph_feat, g_roi, g_x, g_y, knn_idx)
             x_logits = torch.cat([x_logits, new_bits[..., 0:1]], dim=-1)
             y_logits = torch.cat([y_logits, new_bits[..., 1:2]], dim=-1)
             x_id = x_id * 2 + _hard_bit(new_bits[..., 0])
             y_id = y_id * 2 + _hard_bit(new_bits[..., 1])
 
         seg_logits = self.seg_block(img_feat.float()).permute(0, 2, 3, 1)
-        return {"roi_logit": roi_logit, "x_logits": x_logits, "y_logits": y_logits,
-                "seg_logits": seg_logits, "x_id": x_id, "y_id": y_id}
+        out.update({"roi_logit": roi_logit, "x_logits": x_logits, "y_logits": y_logits,
+                    "seg_logits": seg_logits, "x_id": x_id, "y_id": y_id})
+        return out
 
 
 def make_posenet(*, device="cuda", seed: int = 0, **cfg) -> PoseNet:

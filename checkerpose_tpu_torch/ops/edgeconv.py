@@ -1,4 +1,5 @@
-"""Fused inference EdgeConv (BN folded): CUDA kernel wrappers + plain version.
+"""Fused inference EdgeConv (BN folded): CUDA kernel wrappers + plain version,
+and the training form in plain PyTorch (`edgeconv_train`).
 
 Port of checkerpose_tpu/ops/pallas_edgeconv.py::edgeconv_fused_pallas:
 
@@ -54,6 +55,26 @@ def edgeconv_fused_plain(x, knn, w1, w2m1, scale, bias, slope: float = 0.2):
     e = e * scale.float() + bias.float()
     e = torch.where(e >= 0, e, e * slope)
     return e.amax(dim=2).to(x.dtype)
+
+
+def edgeconv_train(x, knn, w1, w2m1, bn, slope: float = 0.2):
+    """Training EdgeConv, the per-node form the JAX package trains with
+    (checkerpose_tpu/models/graph.py::EdgeConv, `train=True`):
+
+        y = x @ w1, z = x @ w2m1, e = y[:, knn] + z[:, :, None, :]
+        out = max_k leaky(bn(e))
+
+    `bn` is called on the whole (B, N, K, C') edge tensor with the channel
+    last and returns f32 (a models/layers.py::BatchNorm in train mode takes
+    the batch statistics over (B, N, K) and updates its running ones); the
+    result is cast to x's dtype before the activation. Plain PyTorch on any
+    device: the JAX package runs no kernel here either, and autograd gives
+    the backward (the gather's is a scatter-add)."""
+    y = x @ w1                                           # (B, N, C')
+    z = x @ w2m1
+    e = y[:, knn.long()] + z[:, :, None, :]              # (B, N, K, C')
+    e = F.leaky_relu(bn(e, channel_dim=-1).to(x.dtype), slope)
+    return e.amax(dim=2)
 
 
 def _ceil_to(v: int, m: int) -> int:

@@ -81,13 +81,16 @@ def test_module_matches_flax_edgeconv():
 
 
 def test_module_refuses_train_and_per_sample_graph():
+    """Train mode runs (the per-node form with batch statistics); a
+    per-sample graph is refused in either mode."""
     knn, x, *_ = _inputs(3)
-    mod = EdgeConv(C, CP, dtype=torch.float32).eval()
+    mod = EdgeConv(C, CP, dtype=torch.float32).train()
     xt, kt = torch.from_numpy(x), torch.from_numpy(knn)
-    with pytest.raises(NotImplementedError):
-        mod(xt, kt, train=True)
-    with pytest.raises(ValueError):
-        mod(xt, kt[None].expand(B, N, K).contiguous())
+    out = mod(xt, kt)
+    assert out.shape == (B, N, CP) and out.requires_grad and mod.folds == 0
+    for m in (mod, mod.eval()):
+        with pytest.raises(ValueError):
+            m(xt, kt[None].expand(B, N, K).contiguous())
 
 
 def _bad_calls():

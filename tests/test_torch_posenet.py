@@ -81,10 +81,18 @@ def test_ids_follow_logits(outputs):
 
 
 def test_forward_refuses_train_and_bad_stage():
-    net = PoseNet(**CFG, dtype=torch.float32).eval()
-    img = torch.zeros(1, CROP, CROP, 3)
-    knn = torch.zeros(NPT, 5, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        net(img, knn, train=True)
+    """Train mode is no longer refused: it runs, returns the init net's
+    response maps beside the usual outputs and moves the BatchNorm
+    statistics. A stage outside [1, 3] is still refused."""
+    net = PoseNet(**CFG, dtype=torch.float32).train()
+    img = torch.zeros(2, CROP, CROP, 3)
+    knn = torch.arange(NPT, dtype=torch.int32)[:, None].expand(NPT, 5).contiguous()
+    var0 = net.up_0.bn1.running_var.clone()
+    out = net(img, knn, stage=1)
+    assert out["x_logits"].shape == (2, NPT, 4) and out["resp_map"].shape == (2, NPT, 64)
+    assert out["x_logits"].requires_grad
+    assert not torch.equal(net.up_0.bn1.running_var, var0)
+    with pytest.raises(TypeError):
+        net(img, knn, train=True)          # the mode is the module's, not an argument
     with pytest.raises(ValueError):
-        net(img, knn, stage=4)
+        net.eval()(img, knn, stage=4)

@@ -16,7 +16,9 @@ from checkerpose_tpu.serving import ServingPipeline as JaxServingPipeline
 from checkerpose_tpu_torch.models.posenet import PoseNet, make_posenet
 from checkerpose_tpu_torch.serving import ServingPipeline
 from checkerpose_tpu_torch.solver.ransac import solve_poses_batched
-from torch_parity import load_port, random_variables
+from torch_parity import few_torch_threads, load_port, random_variables  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 ROOT = Path(__file__).resolve().parents[1]
 NPT, CROP, BATCH = 16, 256, 2
@@ -123,7 +125,8 @@ def _imports(path):
 def test_port_imports_no_jax(path):
     for mod in _imports(ROOT / path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax", "optax", "checkerpose_tpu"), (path, mod)
+        assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "checkerpose_tpu"), \
+            (path, mod)
 
 
 def test_chip_smoke_phases_rehearsed_on_cpu():
@@ -144,6 +147,9 @@ def test_chip_smoke_phases_rehearsed_on_cpu():
     assert ref["f32"]["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}
     oracle = chip_smoke.phase_oracle(dev, batch=8, npoint=64)
     assert oracle["max_rot_err_deg"] < 3.0
+    fold = chip_smoke.phase_fold_cost(dev, iters=2)
+    assert fold == {"fused_args_kept_ms": None, "fused_args_refold_ms": None}
+    assert serving["kernel_launches_per_batch"] is None and serving["device_ms_per_batch"] is None
     tc, fma = chip_smoke.kernel_summary(rows, {"tc": 0, "fma": 0})
     for entry in (tc, fma):
         for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -157,6 +163,40 @@ def test_chip_smoke_phases_rehearsed_on_cpu():
     assert chip_smoke.edgeconv_bound_ms(512, 512, 20, 256, 256, torch.float32)[1] == "operations"
     if not torch.cuda.is_available():
         assert chip_smoke.main([]) == 1          # the script refuses the CPU
+
+
+def test_chip_smoke_train_phase_rehearsed_on_cpu(tmp_path):
+    """phase_train at tiny size on the CPU: every gate runs (the steps
+    train, "card" against CPU, the refold after training, the loop with its
+    checkpoints and the restore), no device number is made up, and the hooked
+    profile of one step sees every layer type."""
+    dev = torch.device("cpu")
+    res = chip_smoke.phase_train(dev, batch=2, npoint=NPT, backbone="hrnet_w18_small", knn_k=5,
+                                 steps_n=6, loop_steps=4, timed_steps=1,
+                                 profile_dir=tmp_path / "prof", ckpt_dir=tmp_path / "train")
+    first, last = res["train_loss_first5_last5"]
+    assert last < first
+    first, last = res["pretrain_loss_first5_last5"]
+    assert last < first
+    after = res["eval_after_training"]
+    assert after["refolds"] == [1] * chip_smoke.EDGECONV_PER_FORWARD
+    assert after["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}     # no card, no launch
+    assert after["ids_agree_with_plain"] == {"x_id": 1.0, "y_id": 1.0}
+    assert res["card_vs_cpu"]["loss_rel_err"] < 1e-6
+    assert res["card_vs_cpu"]["grad_rel_l2_card32_vs_cpu32"] < 1e-4      # the CPU against itself
+    assert 0 < res["card_vs_cpu"]["grad_rel_l2_cpu32_vs_cpu64"] < 0.1
+    assert res["loop"]["kept"] == [8, 9, 10] and len(res["loop"]["best"]) == 1
+    assert res["loop"]["max_param_diff_after_two_steps"] < 1e-5
+    for key in ("step_ms", "steps_per_s", "peak_mem_gib", "kernel_launches_per_step",
+                "device_ms_per_step", "edgeconv_train_device_ms_per_step"):
+        assert res[key] is None                  # no time, rate or memory off the card
+    assert sorted(res["profile"]["by_layer"]) == ["Adam", "BatchNorm", "Conv2d",
+                                                  "ConvTranspose2d", "EdgeConv"]
+    assert (tmp_path / "prof" / "train_profile.txt").exists()
+    tc, _ = chip_smoke.kernel_summary(
+        chip_smoke.phase_kernels(dev, B=1, N=32, K=4, widths=(64, 256), iters=1, plain_iters=1),
+        {"tc": 55, "fma": 11}, after["edgeconv_launches_by_route"])
+    assert tc["launches"] == 55 and tc["launches_by_path"] == {"serving": 55, "train_eval": 0}
 
 
 def test_edgeconv_bound_matches_the_issue_table():

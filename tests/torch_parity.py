@@ -54,6 +54,20 @@ def nchw_to_nhwc(x: torch.Tensor) -> np.ndarray:
     return x.detach().permute(0, 2, 3, 1).numpy()
 
 
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """At most two intra-op threads for the module's tests. The suite runs
+    with several pytest-xdist workers; each worker's torch pool defaults to
+    one thread per core, and with the cores oversubscribed that many times
+    over an eager train step through a backbone takes ten times as long (the
+    OpenMP threads spin on each other). A test module that trains takes this
+    fixture with `pytestmark = pytest.mark.usefixtures("few_torch_threads")`."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(before, 2))
+    yield
+    torch.set_num_threads(before)
+
+
 def require_cuda():
     """Skip the calling test when no CUDA device is present (decided at run
     time, so every pytest-xdist worker collects the same tests)."""

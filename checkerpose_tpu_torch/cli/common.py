@@ -1,0 +1,191 @@
+"""Shared CLI plumbing, single-object part: config-driven dataset and
+loader construction (counterpart of checkerpose_tpu/cli/common.py, same cfg
+keys and path conventions: checkpoint and log dirs are
+<base>/<cfg_name>/<obj_name>).
+
+Not ported yet (ROADMAP queue 1): the multi-object LM part
+(`resolve_cfg_lm`, `load_keypoints_lm`, `build_train_loaders_lm`) and the
+NOCS backbone graft (`maybe_graft_pretrained_backbone`).
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+from checkerpose_tpu_torch.config import parse_cfg
+from checkerpose_tpu_torch.data.bop_io import load_models_info, scan_bop_object, scan_bop_targets
+from checkerpose_tpu_torch.data.dataset import (CropDataset, Loader, MixedLoader,
+                                                mixed_batch_sizes)
+from checkerpose_tpu_torch.data.dataset_info import get_obj_info
+from checkerpose_tpu_torch.data.detections import attach_detections, load_detections
+from checkerpose_tpu_torch.data.fps import load_keypoints_normed
+from checkerpose_tpu_torch.data.framestore import FrameCache
+from checkerpose_tpu_torch.ops.knn import knn_index
+
+
+def resolve_cfg(cfg_path: str, obj_name: str, overrides: Optional[Dict] = None) -> Dict:
+    cfg = parse_cfg(cfg_path)
+    cfg["config_file_name"] = os.path.splitext(os.path.basename(cfg_path))[0]
+    cfg["obj_name"] = obj_name
+    if overrides:
+        cfg.update({k: v for k, v in overrides.items() if v is not None})
+    names, syms = get_obj_info(cfg["dataset_name"])
+    cfg["obj_id"] = names[obj_name]
+    cfg["is_symmetric"] = obj_name in syms
+    for key, base in (("check_point_path", "experiments/checkpoints"),
+                      ("tensorboard_path", "experiments/tensorboard_logs/runs")):
+        root = cfg.get(key, base)
+        cfg[key] = os.path.join(root, cfg["config_file_name"], obj_name)
+    return cfg
+
+
+def load_keypoints(cfg: Dict):
+    """(xyz (N, 3) mm, normed (N, 3) unit ball, knn (N, K) int32)."""
+    num_p3d = 2 ** int(cfg["num_p3d_log2"])
+    xyz, normed = load_keypoints_normed(cfg["bop_path"], cfg["dataset_name"],
+                                        cfg["obj_id"], num_p3d,
+                                        cfg.get("fps_version", "fps_202212"))
+    graph_k = int(cfg.get("network_graph_k", cfg.get("init_network_graph_k", 20)))
+    knn = knn_index(normed, min(graph_k, len(normed)))
+    return xyz, normed, knn
+
+
+def _frame_cache(cfg: Dict):
+    """The frame cache cfg `frame_cache_dir` names, else the dataset's own
+    `frame_cache/` dir when it has one, else None."""
+    cand = cfg.get("frame_cache_dir")
+    if not cand or cand == "none":
+        cand = os.path.join(cfg["bop_path"], cfg["dataset_name"], "frame_cache")
+    if os.path.isfile(os.path.join(str(cand), "index.json")):
+        return FrameCache(str(cand))
+    return None
+
+
+def _crop_kw(cfg: Dict, crop_gt: int) -> Dict:
+    return dict(crop_size_img=int(cfg.get("BoundingBox_CropSize_image", 256)),
+                crop_size_gt=crop_gt,
+                padding_ratio=float(cfg.get("padding_ratio", 1.5)),
+                resize_method=cfg.get("resize_method", "crop_square_resize"),
+                frame_cache=_frame_cache(cfg))
+
+
+def build_train_loaders(cfg: Dict, xyz: np.ndarray, seed: int = 0):
+    """Train loader (optionally mixing two folders at second_dataset_ratio)
+    + a factory of the validation loader."""
+    common = _crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
+                                       2 ** int(cfg.get("network_res_log2", 6)))))
+    vt = float(cfg.get("train_obj_visible_theshold", 0.1))
+    batch = int(cfg["batch_size"])
+
+    s1 = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
+                         cfg["training_data_folder"], cfg["obj_id"], vt)
+    folder2 = cfg.get("training_data_folder_2", "none")
+    if folder2 and folder2 != "none":
+        s2 = scan_bop_object(cfg["bop_path"], cfg["dataset_name"], folder2,
+                             cfg["obj_id"], vt)
+        b1, b2 = mixed_batch_sizes(batch, float(cfg.get("second_dataset_ratio", 0.75)))
+        l1 = Loader(CropDataset(s1, xyz, is_train=True, seed=seed, **common),
+                    b1, shuffle=True, infinite=True, seed=seed)
+        l2 = Loader(CropDataset(s2, xyz, is_train=True, seed=seed + 1, **common),
+                    b2, shuffle=True, infinite=True, seed=seed + 1)
+        train_loader = MixedLoader(l1, l2)
+    else:
+        train_loader = Loader(CropDataset(s1, xyz, is_train=True, seed=seed, **common),
+                              batch, shuffle=True, infinite=True, seed=seed)
+
+    sv = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
+                         cfg.get("val_folder", "test"), cfg["obj_id"], 0.1)
+    val_ds = CropDataset(sv, xyz, is_train=False, **common)
+    val_loader_factory = lambda: Loader(val_ds, batch, shuffle=False,  # noqa: E731
+                                        drop_last=False, infinite=False)
+    return train_loader, val_loader_factory
+
+
+def build_test_loader(cfg: Dict, xyz: np.ndarray, batch_size: int = 16,
+                      crop_gt: Optional[int] = None):
+    """(single-pass loader over the test split, its samples): the BOP19
+    targets with `bop_challange`, detector boxes when `Detection_reaults`
+    names a file."""
+    crop_gt = crop_gt or 2 ** int(cfg.get("network_res_log2", 6))
+    if cfg.get("bop_challange", False):
+        samples = scan_bop_targets(cfg["bop_path"], cfg["dataset_name"],
+                                   cfg["obj_id"], cfg.get("test_folder", "test"))
+    else:
+        samples = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
+                                  cfg.get("test_folder", "test"), cfg["obj_id"], 0.1)
+    det_path = cfg.get("Detection_reaults", "none")
+    use_det = bool(det_path) and det_path != "none"
+    if use_det:
+        samples = attach_detections(samples, load_detections(det_path, cfg["obj_id"]))
+    ds = CropDataset(samples, xyz, is_train=False, use_detections=use_det,
+                     **_crop_kw(cfg, crop_gt))
+    return Loader(ds, batch_size, shuffle=False, drop_last=False, infinite=False), samples
+
+
+def build_val_slice_loader_factory(cfg: Dict, xyz: np.ndarray, *,
+                                   max_images: int = 32,
+                                   batch_size: int = 16,
+                                   crop_gt: Optional[int] = None):
+    """Factory of a loader over a small held-out slice (the first
+    `max_images` of `calib_folder`, GT boxes) for decode-tau calibration;
+    `calib_folder` defaults to val_folder, then test_folder, but should
+    name a training split so tau is not tuned on the images it is quoted on."""
+    crop_gt = crop_gt or 2 ** int(cfg.get("network_res_log2", 6))
+    samples = scan_bop_object(
+        cfg["bop_path"], cfg["dataset_name"],
+        cfg.get("calib_folder", cfg.get("val_folder", cfg.get("test_folder", "test"))),
+        cfg["obj_id"], 0.1)[:max_images]
+    ds = CropDataset(samples, xyz, is_train=False, use_detections=False,
+                     **_crop_kw(cfg, crop_gt))
+
+    def factory():
+        return Loader(ds, batch_size, shuffle=False, drop_last=False, infinite=False)
+
+    return factory
+
+
+def attach_p3d(batch: Dict, p3dn: np.ndarray) -> Dict:
+    """Attach the object's normalized keypoints (N, 3) to every sample."""
+    B = batch["image"].shape[0]
+    batch["p3d_normed"] = np.broadcast_to(p3dn[None], (B,) + p3dn.shape).copy()
+    return batch
+
+
+def with_p3d(loader, p3dn: np.ndarray):
+    for batch in loader:
+        yield attach_p3d(batch, p3dn)
+
+
+def solver_kwargs(cfg: Dict) -> Dict:
+    """The reference's solver flags mapped onto this solver's knobs:
+    reprojErr_thresh -> reproj_thresh; under --use_progressivex the soft
+    inliers and the spatial-coherence diffusion (weight, radius); the
+    sequential iteration caps -> num_hyp, the parallel hypothesis count
+    (an explicit pnp_num_hyp wins)."""
+    use_px = bool(cfg.get("use_progressivex", False))
+    max_iters = cfg.get("prog_max_iters") if use_px else cfg.get("cv_max_iters")
+    return dict(
+        num_hyp=int(cfg.get("pnp_num_hyp") or max_iters or 128),
+        reproj_thresh=float(cfg.get("pnp_reproj_thresh")
+                            or cfg.get("reprojErr_thresh") or 2.0),
+        soft_inlier_sigma=(0.5 if use_px else 0.0),
+        coherence_weight=(float(cfg.get("spatial_coherence_weight") or 0.1)
+                          if use_px else 0.0),
+        neighborhood_radius=float(cfg.get("nbr_ball_radius") or 20.0),
+    )
+
+
+def checkpoint_dir_arg(ckpt_dir, ckpt_file):
+    """--ckpt_dir, with --ckpt_file accepted as the reference CLI's alias; a
+    file path degrades to its directory."""
+    ckpt = ckpt_dir or ckpt_file
+    if ckpt and os.path.isfile(ckpt):
+        ckpt = os.path.dirname(ckpt)
+    return ckpt
+
+
+def object_diameter(cfg: Dict) -> float:
+    info = load_models_info(cfg["bop_path"], cfg["dataset_name"], eval_models=False)
+    return float(info[cfg["obj_id"]]["diameter"])

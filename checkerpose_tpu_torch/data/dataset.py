@@ -1,0 +1,216 @@
+"""Crop dataset + host input pipeline (counterpart of
+checkerpose_tpu/data/dataset.py: `CropDataset`'s python item path, `Loader`,
+`MixedLoader`, `mixed_batch_sizes`).
+
+Host side (here): frame read, bbox selection (train jitter / test padding or
+detector box), crop + resize, keypoint projection, all numpy. Device side
+(train and eval steps): color augmentation, ImageNet normalization and the GT
+binary-code labels. Batches are dicts of stacked numpy arrays; a background
+thread prefetches ahead of the card.
+
+Frames and masks come from the frame cache when one is given
+(`data/framestore.py`), else from the image files through `data/imageio.py`.
+Not ported: the native C++ decode + crop core of the JAX package
+(`native_loader.py`; ROADMAP queues it), and what only the multi-object LM
+path uses: per-object keypoint tables (`obj_idx` is 0 here) and background
+replacement (`bg_paths`).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, List
+
+import numpy as np
+
+from checkerpose_tpu_torch.data.bop_io import Sample
+from checkerpose_tpu_torch.data.imageio import read_image
+from checkerpose_tpu_torch.ops import geometry
+from checkerpose_tpu_torch.ops.crop import get_roi_np
+
+
+class CropDataset:
+    """Per-object crop dataset over a Sample manifest."""
+
+    def __init__(self, samples: List[Sample], p3d_xyz, *,
+                 is_train: bool, crop_size_img: int = 256, crop_size_gt: int = 64,
+                 padding_ratio: float = 1.5, resize_method: str = "crop_square_resize",
+                 use_detections: bool = False, seed: int = 0, frame_cache=None):
+        """p3d_xyz: (N, 3) keypoints shared by all samples."""
+        self.samples = samples
+        self.p3d = np.asarray(p3d_xyz, np.float64)
+        self.frame_cache = frame_cache
+        self.is_train = is_train
+        self.crop_size_img = crop_size_img
+        self.crop_size_gt = crop_size_gt
+        self.padding_ratio = padding_ratio
+        self.resize_method = resize_method
+        self.use_detections = use_detections
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def dummy_item(self, s: Sample) -> Dict[str, np.ndarray]:
+        """Missing detection or unreadable frame -> zero input with
+        `valid`=0, which eval leaves out."""
+        S, G = self.crop_size_img, self.crop_size_gt
+        return {
+            "image": np.zeros((S, S, 3), np.uint8),
+            "mask_visib": np.zeros((G, G), np.float32),
+            "mask_full": np.zeros((G, G), np.float32),
+            "R": s.R.astype(np.float32), "t": s.t.astype(np.float32),
+            "bbox": np.zeros(4, np.float32),
+            "cam_K": s.cam_K.astype(np.float32),
+            "proj_xy": np.zeros((self.p3d.shape[0], 2), np.float32),
+            "obj_id": np.int32(s.obj_id), "obj_idx": np.int32(0),
+            "scene_id": np.int32(s.scene_id), "im_id": np.int32(s.im_id),
+            "valid": np.float32(0.0),
+        }
+
+    def _choose_bbox(self, s: Sample) -> np.ndarray:
+        """Train: jittered GT bbox; eval: padded detector or GT bbox."""
+        if self.is_train:
+            return geometry.aug_bbox(s.bbox_visib, self.padding_ratio, self.rng)
+        base = s.detect_bbox if self.use_detections else s.bbox_visib
+        return geometry.padding_bbox(base, self.padding_ratio)
+
+    def _sample_dict(self, s: Sample, image, mask_visib, mask_full, bbox,
+                     valid: float, im_w: int, im_h: int) -> Dict[str, np.ndarray]:
+        proj_xy, _ = geometry.project_pts(self.p3d, s.cam_K, s.R, s.t)
+        final = geometry.final_bbox(bbox, self.resize_method, im_w, im_h)
+        return {
+            "image": image, "mask_visib": mask_visib, "mask_full": mask_full,
+            "R": s.R.astype(np.float32), "t": s.t.astype(np.float32),
+            "bbox": final.astype(np.float32),
+            "cam_K": s.cam_K.astype(np.float32),
+            "proj_xy": proj_xy.astype(np.float32),
+            "obj_id": np.int32(s.obj_id), "obj_idx": np.int32(0),
+            "scene_id": np.int32(s.scene_id), "im_id": np.int32(s.im_id),
+            "valid": np.float32(valid),
+        }
+
+    def _read_sample(self, s: Sample):
+        """(rgb, mask_visib, mask_full) from the frame cache when present,
+        else decoded from the files; None when any of them is unreadable."""
+        img = mask_visib = mask_full = None
+        if self.frame_cache is not None:
+            img = self.frame_cache.get_frame(s.rgb_path)
+            mask_visib = self.frame_cache.get_mask(s.mask_visib_path)
+            mask_full = self.frame_cache.get_mask(s.mask_path)
+        if img is None:
+            img = read_image(s.rgb_path)
+        if mask_visib is None:
+            mask_visib = read_image(s.mask_visib_path, gray=True)
+        if mask_full is None:
+            mask_full = read_image(s.mask_path, gray=True)
+        if img is None or mask_visib is None or mask_full is None:
+            return None
+        return img, mask_visib, mask_full
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        s = self.samples[index]
+        if self.use_detections and s.detect_bbox is None:
+            return self.dummy_item(s)
+        decoded = self._read_sample(s)
+        if decoded is None:
+            print(f"cannot load sample {s.rgb_path}", flush=True)
+            return self.dummy_item(s)
+        img, mask_visib, mask_full = decoded
+        bbox = self._choose_bbox(s)
+        roi_img = get_roi_np(img, bbox, self.crop_size_img, "linear", self.resize_method)
+        roi_mv = get_roi_np(mask_visib, bbox, self.crop_size_gt, "nearest", self.resize_method)
+        roi_mf = get_roi_np(mask_full, bbox, self.crop_size_gt, "nearest", self.resize_method)
+        return self._sample_dict(
+            s, np.ascontiguousarray(roi_img),               # uint8 HWC
+            roi_mv.astype(np.float32) / 255.0,
+            roi_mf.astype(np.float32) / 255.0,
+            bbox, 1.0, img.shape[1], img.shape[0])
+
+
+def _stack(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class Loader:
+    """Infinite shuffled (train) or single-pass (eval) batch iterator with
+    background-thread prefetch. A short last batch is padded by repeating
+    the order from its start; `n_real` says how many rows are real."""
+
+    def __init__(self, dataset: CropDataset, batch_size: int, *, shuffle: bool,
+                 drop_last: bool = True, prefetch: int = 4, seed: int = 0,
+                 infinite: bool = False):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.infinite = infinite
+        self.rng = np.random.default_rng(seed)
+
+    def _index_stream(self):
+        n = len(self.ds)
+        while True:
+            order = self.rng.permutation(n) if self.shuffle else np.arange(n)
+            for i in range(0, n, self.batch_size):
+                chunk = order[i:i + self.batch_size]
+                n_real = len(chunk)
+                if n_real < self.batch_size:
+                    if self.drop_last:
+                        break
+                    pad = np.resize(order, self.batch_size - n_real)
+                    chunk = np.concatenate([chunk, pad])
+                yield chunk, n_real
+            if not self.infinite:
+                return
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+
+        def worker():
+            # an exception goes to the consumer; a thread that died silently
+            # would leave q.get() waiting forever
+            try:
+                for chunk, n_real in self._index_stream():
+                    batch = _stack([self.ds[int(j)] for j in chunk])
+                    batch["n_real"] = np.int32(n_real)
+                    q.put(batch)
+                q.put(stop)
+            except Exception as e:  # noqa: BLE001 -- re-raised by the consumer
+                q.put(e)
+
+        th = threading.Thread(target=worker, daemon=True)
+        th.start()
+        while True:
+            batch = q.get()
+            if batch is stop:
+                return
+            if isinstance(batch, Exception):
+                raise batch
+            yield batch
+
+
+def mixed_batch_sizes(batch_size: int, second_dataset_ratio: float):
+    """Split a global batch across two datasets: batch2 = round(batch * ratio)."""
+    b2 = int(round(batch_size * second_dataset_ratio))
+    return batch_size - b2, b2
+
+
+class MixedLoader:
+    """Concatenates fixed-ratio sub-batches from two loaders per step."""
+
+    def __init__(self, loader1: Loader, loader2: Loader):
+        self.loader1 = loader1
+        self.loader2 = loader2
+
+    def __iter__(self):
+        it1, it2 = iter(self.loader1), iter(self.loader2)
+        while True:
+            b1 = next(it1, None)
+            b2 = next(it2, None)
+            if b1 is None or b2 is None:
+                return
+            out = {k: np.concatenate([b1[k], b2[k]]) for k in b1 if k != "n_real"}
+            out["n_real"] = b1["n_real"] + b2["n_real"]
+            yield out

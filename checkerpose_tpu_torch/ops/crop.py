@@ -1,12 +1,28 @@
-"""Image normalization of the crop path (counterpart of
-checkerpose_tpu/ops/crop.py::normalize_image)."""
+"""Crop + resize on the host and image normalization on the device
+(counterpart of checkerpose_tpu/ops/crop.py: `crop_square_resize_np`,
+`crop_resize_np`, `get_roi_np`, `normalize_image`).
+
+The host crop keeps the reference data pipeline's geometry
+(`checkerpose/bop_dataset_pytorch.py:39-144`), int truncation of the corners
+included, and resizes in numpy with `cv2.resize`'s geometry, so the port
+needs no image library:
+  * linear: half-pixel centres, edge pixels repeated, and for uint8 the
+    fixed-point arithmetic of OpenCV's vectorised path (11-bit weights, the
+    horizontal pass in int32, the vertical one as two 16-bit high products);
+  * nearest: source index floor(i * src / dst).
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from checkerpose_tpu_torch.ops.geometry import square_bbox
+
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+_COEF_BITS = 11                      # OpenCV's INTER_RESIZE_COEF_BITS
+_COEF_ONE = 1 << _COEF_BITS
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
@@ -16,3 +32,107 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
     std = torch.as_tensor(IMAGENET_STD, device=x.device)
     return (x - mean) / std
+
+
+def _linear_taps(src: int, dst: int):
+    """Per output index: the two source indices and their weights, as
+    OpenCV computes them (f32 offsets, clamped at both edges)."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = f - i0.astype(np.float32)
+    low, high = i0 < 0, i0 >= src - 1
+    f[low | high] = 0.0
+    i0 = np.where(low, 0, np.where(high, src - 1, i0))
+    i1 = np.minimum(i0 + 1, src - 1)
+    return i0, i1, f
+
+
+def _resize_linear_u8(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    x0, x1, fx = _linear_taps(w, size)
+    y0, y1, fy = _linear_taps(h, size)
+    # weights rounded each on its own, as OpenCV's saturate_cast<short> does
+    ax0 = np.rint((1.0 - fx) * _COEF_ONE).astype(np.int32)
+    ax1 = np.rint(fx * _COEF_ONE).astype(np.int32)
+    by0 = np.rint((1.0 - fy) * _COEF_ONE).astype(np.int32)
+    by1 = np.rint(fy * _COEF_ONE).astype(np.int32)
+    shape = (1, size) + (1,) * (img.ndim - 2)
+    rows = img.astype(np.int32)
+    hx = rows[:, x0] * ax0.reshape(shape) + rows[:, x1] * ax1.reshape(shape)   # (h, size, ...)
+    shape = (size,) + (1,) * (img.ndim - 1)
+    d0, d1 = hx[y0] >> 4, hx[y1] >> 4
+    out = ((by0.reshape(shape) * d0) >> 16) + ((by1.reshape(shape) * d1) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def _resize_linear_float(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    x0, x1, fx = _linear_taps(w, size)
+    y0, y1, fy = _linear_taps(h, size)
+    shape = (1, size) + (1,) * (img.ndim - 2)
+    x = img.astype(np.float32)
+    hx = x[:, x0] * (1.0 - fx).reshape(shape) + x[:, x1] * fx.reshape(shape)
+    shape = (size,) + (1,) * (img.ndim - 1)
+    out = hx[y0] * (1.0 - fy).reshape(shape) + hx[y1] * fy.reshape(shape)
+    return out.astype(img.dtype)
+
+
+def _resize_nearest(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(size) * (1.0 / (size / w))).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(size) * (1.0 / (size / h))).astype(np.int64), h - 1)
+    return img[ys][:, xs]
+
+
+def _resize_np(img: np.ndarray, crop_size: int, interpolation: str) -> np.ndarray:
+    """Resize an (h, w[, c]) image to (crop_size, crop_size[, c])."""
+    if img.shape[0] == 0 or img.shape[1] == 0:
+        raise ValueError(f"cannot resize an empty image of shape {img.shape}")
+    if interpolation != "linear":
+        return _resize_nearest(img, crop_size)
+    if img.dtype == np.uint8:
+        return _resize_linear_u8(img, crop_size)
+    return _resize_linear_float(img, crop_size)
+
+
+def crop_square_resize_np(img: np.ndarray, bbox, crop_size: int,
+                          interpolation: str = "linear") -> np.ndarray:
+    """Zero-pad the bbox to square, crop (clipping to the image), resize."""
+    x1, y1, bw, bh = int(bbox[0]), int(bbox[1]), int(bbox[2]), int(bbox[3])
+    sq = square_bbox(np.array([x1, y1, bw, bh]))
+    x1, y1, side = int(sq[0]), int(sq[1]), int(max(bh, bw))
+    x2, y2 = x1 + int(sq[2]), y1 + int(sq[3])
+
+    roi = np.zeros((side, side) + img.shape[2:], dtype=img.dtype)
+    rx1 = max(-x1, 0)
+    x1c = max(x1, 0)
+    rx2 = rx1 + min(img.shape[1] - x1c, x2 - x1c)
+    ry1 = max(-y1, 0)
+    y1c = max(y1, 0)
+    ry2 = ry1 + min(img.shape[0] - y1c, y2 - y1c)
+    x2c = min(x2, img.shape[1])
+    y2c = min(y2, img.shape[0])
+    roi[ry1:ry2, rx1:rx2] = img[y1c:y2c, x1c:x2c]
+    return _resize_np(roi, crop_size, interpolation)
+
+
+def crop_resize_np(img: np.ndarray, bbox, crop_size: int,
+                   interpolation: str = "linear") -> np.ndarray:
+    """Clip bbox to image, crop, resize (aspect NOT preserved)."""
+    x1 = max(0, int(bbox[0]))
+    x2 = min(img.shape[1], int(bbox[0] + bbox[2]))
+    y1 = max(0, int(bbox[1]))
+    y2 = min(img.shape[0], int(bbox[1] + bbox[3]))
+    return _resize_np(img[y1:y2, x1:x2], crop_size, interpolation)
+
+
+def get_roi_np(img: np.ndarray, bbox, crop_size: int, interpolation: str,
+               resize_method: str) -> np.ndarray:
+    """The reference's `get_roi` dispatch; `crop_resize_by_warp_affine` is the
+    square crop (geometrically equal for rotation 0, the only one used)."""
+    if resize_method == "crop_resize":
+        return crop_resize_np(img, bbox, crop_size, interpolation)
+    if resize_method in ("crop_square_resize", "crop_resize_by_warp_affine"):
+        return crop_square_resize_np(img, bbox, crop_size, interpolation)
+    raise NotImplementedError(f"unknown resize_method: {resize_method}")

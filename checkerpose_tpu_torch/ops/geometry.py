@@ -1,6 +1,9 @@
-"""Point-cloud helper on the host and GT label generation on the device
-(counterparts of checkerpose_tpu/ops/geometry.py::pc_normalize and
-::make_code_labels)."""
+"""Geometry: projection, point-cloud normalization, bbox math and FPS on the
+host (numpy), GT label generation on the device (counterpart of
+checkerpose_tpu/ops/geometry.py).
+
+The host bbox helpers keep the exact int truncation of the reference data
+pipeline (`checkerpose/bop_dataset_pytorch.py:147-235`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,6 +16,92 @@ def pc_normalize(pc: np.ndarray) -> np.ndarray:
     pc = pc - np.mean(pc, axis=0)
     m = np.max(np.sqrt(np.sum(pc ** 2, axis=1)))
     return pc / m
+
+
+def project_pts(pts, K, R, t):
+    """Project 3D points: pts (N, 3), K (3, 3), R (3, 3), t (3,) or (3, 1).
+    Returns (uv (N, 2), depth (N,)), numpy."""
+    t = np.reshape(t, (3,))
+    cam = pts @ R.T + t[None, :]
+    proj = cam @ K.T
+    return proj[:, :2] / proj[:, 2:3], cam[:, 2]
+
+
+def padding_bbox(bbox, padding_ratio: float) -> np.ndarray:
+    """Pad bbox (x, y, w, h) about its center, int-truncated."""
+    x1, y1, bw, bh = float(bbox[0]), float(bbox[1]), float(bbox[2]), float(bbox[3])
+    cx = x1 + 0.5 * bw
+    cy = y1 + 0.5 * bh
+    pw = int(bw * padding_ratio)
+    ph = int(bh * padding_ratio)
+    return np.array([int(cx - pw / 2), int(cy - ph / 2), pw, ph])
+
+
+def aug_bbox(bbox, padding_ratio: float, rng: np.random.Generator) -> np.ndarray:
+    """Randomly scale (+-25%) and shift (+-25%) a GT bbox, then pad; draws
+    from `rng` in the JAX package's order."""
+    x1, y1, bw, bh = float(bbox[0]), float(bbox[1]), float(bbox[2]), float(bbox[3])
+    cx = x1 + 0.5 * bw
+    cy = y1 + 0.5 * bh
+    scale_ratio = 1 + 0.25 * (2 * rng.random() - 1)
+    shift = 0.25 * (2 * rng.random(2) - 1)
+    center = np.array([cx + bw * shift[0], cy + bh * shift[1]])
+    aw = int(bw * scale_ratio * padding_ratio)
+    ah = int(bh * scale_ratio * padding_ratio)
+    return np.array([int(center[0] - aw / 2), int(center[1] - ah / 2), aw, ah])
+
+
+def square_bbox(bbox) -> np.ndarray:
+    """Expand bbox to a square about its center (int-truncated corners): the
+    final bbox of `crop_square_resize` / `crop_resize_by_warp_affine`."""
+    x1, y1, bw, bh = float(bbox[0]), float(bbox[1]), float(bbox[2]), float(bbox[3])
+    x2, y2 = x1 + bw, y1 + bh
+    cx, cy = 0.5 * (x1 + x2), 0.5 * (y1 + y2)
+    if bh > bw:
+        x1, x2 = cx - bh / 2, cx + bh / 2
+    else:
+        y1, y2 = cy - bw / 2, cy + bw / 2
+    x1, y1, x2, y2 = int(x1), int(y1), int(x2), int(y2)
+    return np.array([x1, y1, x2 - x1, y2 - y1])
+
+
+def clip_bbox(bbox, max_x: int, max_y: int) -> np.ndarray:
+    """The final bbox of plain `crop_resize`: bbox clipped to the image."""
+    x1 = max(int(bbox[0]), 0)
+    y1 = max(int(bbox[1]), 0)
+    x2 = min(int(bbox[0] + bbox[2]), max_x)
+    y2 = min(int(bbox[1] + bbox[3]), max_y)
+    return np.array([x1, y1, x2 - x1, y2 - y1])
+
+
+def final_bbox(bbox, resize_method: str, max_x: int, max_y: int) -> np.ndarray:
+    if resize_method in ("crop_square_resize", "crop_resize_by_warp_affine"):
+        return square_bbox(bbox)
+    elif resize_method == "crop_resize":
+        return clip_bbox(bbox, max_x, max_y)
+    raise NotImplementedError(resize_method)
+
+
+def farthest_point_sample(xyz: np.ndarray, npoint: int, init_center: bool = True) -> np.ndarray:
+    """FPS over mesh vertices, indices (npoint,): seeded with the vertex
+    closest to the cloud's bbox center (or vertex 0), then greedy max-min."""
+    n = xyz.shape[0]
+    dists = np.full(n, np.inf)
+    idx = np.zeros(npoint, dtype=np.int64)
+    if init_center:
+        center = 0.5 * (xyz.max(axis=0) + xyz.min(axis=0))
+        first = int(np.argmin(((xyz - center) ** 2).sum(axis=1)))
+    else:
+        first = 0
+    idx[0] = first
+    last = xyz[first]
+    for i in range(1, npoint):
+        d = ((xyz - last) ** 2).sum(axis=1)
+        dists = np.minimum(dists, d)
+        nxt = int(np.argmax(dists))
+        idx[i] = nxt
+        last = xyz[nxt]
+    return idx
 
 
 def crop_cell_sizes(bbox: torch.Tensor, crop_size_gt: int):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and evaluation paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, as a user would run it
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler table
@@ -33,7 +33,20 @@ Phases (each raises on failure; the script then exits non-zero):
               through the tensor-core kernel 11 times; (4) run_training with
               rolling, best and restored checkpoints; then ms per step,
               steps/s and peak memory with the configured augmentation on,
-              with --profile the shares of the step by layer type.
+              with --profile the shares of the step by layer type;
+  7. eval     the test CLI (`checkerpose_tpu_torch.cli.test.main`) at the
+              synthetic flagship's width (config/synth/...mlpQuery_synth.txt:
+              hrnet_w18, 512 keypoints, K=20, res_log2 6) on a fixture the port
+              generates (256 test images, 32 train_real, frame cache only),
+              random weights with the seg head's bias centred on the crops,
+              batch 64, hard and adaptive with the tau calibrated: (a) report
+              keys, rates and the CSV read back; (b) 11 tensor-core EdgeConv
+              launches per forward batch; (c) the metrics on the card against
+              float64; (d) the f32 harness on the card against the CPU on 8
+              images; both kernels against the plain version at the eval
+              batch; eval images/s, ms per batch by phase (first batch and
+              the rest), launches and device ms of a warm batch, the host
+              crop's ms per image, peak memory.
 Then one JSON line with the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -996,11 +1009,385 @@ def phase_fold_cost(device, iters=20):
     return res
 
 
+# the synthetic flagship of the eval phase: hrnet_w18, 512 keypoints, K=20,
+# res_log2 6, 3 graph modules per refine stage, aux refine heads
+EVAL_CFG = "config/synth/hr18GNN2_res6_gnn3Skip_mlpQuery_synth.txt"
+# the keys of the JAX harness's report, as `cli.test.main` returns it in hard
+# mode (tests/test_torch_cli_test.py holds this list against the JAX CLI's)
+EVAL_REPORT_KEYS = ("bit_err", "decode_mode", "full", "n_images", "none", "poses", "seg_acc",
+                    "seg_iou", "test_acc", "visib")
+EVAL_ADAPTIVE_KEYS = ("decode_conf_tau", "tau_sweep")
+EVAL_MODE_KEYS = ("adx02", "adx05", "adx10", "auc_posecnn", "mean_re_deg", "mean_te_mm",
+                  "n_valid_lt6_frac", "n_valid_mean", "re2", "re5", "rete2", "rete5", "te2",
+                  "te5")
+EVAL_RATE_KEYS = ("adx02", "adx05", "adx10", "n_valid_lt6_frac", "re2", "re5", "rete2",
+                  "rete5", "te2", "te5")
+# gate (c): the port's f32 metrics against float64 on the same inputs
+METRIC_ATOL_MM, METRIC_RTOL, METRIC_RE_DEG = 1e-4, 1e-5, 0.05
+# gate (d): card against CPU, both f32, harness with the same seed; seen on
+# the card: seg metrics 3.6e-5 apart (one pixel in 8 crops), bit errors and
+# correspondence counts equal
+EVAL_CARD_CPU_TOL = 2e-3
+
+
+def _cv2_importable() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _gate_eval_report(report, csv_path, n_images, adaptive):
+    """Gate (a): the report's keys, its rates, and the CSV read back."""
+    import csv
+    want = set(EVAL_REPORT_KEYS) | (set(EVAL_ADAPTIVE_KEYS) if adaptive else set())
+    if set(report) != want:
+        raise AssertionError(f"gate (a): report keys {sorted(report)}, expected {sorted(want)}")
+    if report["n_images"] != n_images:
+        raise AssertionError(f"gate (a): n_images {report['n_images']}, expected {n_images}")
+    for mode in ("none", "full", "visib"):
+        if set(report[mode]) != set(EVAL_MODE_KEYS):
+            raise AssertionError(f"gate (a): {mode} keys {sorted(report[mode])}")
+        bad = {k: report[mode][k] for k in EVAL_RATE_KEYS if not 0.0 <= report[mode][k] <= 1.0}
+        if bad:
+            raise AssertionError(f"gate (a): {mode} rates outside [0, 1]: {bad}")
+    for k in ("seg_acc", "seg_iou", "test_acc"):
+        if not 0.0 <= report[k] <= 1.0:
+            raise AssertionError(f"gate (a): {k} = {report[k]} outside [0, 1]")
+    with open(csv_path) as f:
+        rows = list(csv.reader(f))[1:]
+    scored = [p for p in report["poses"] if p["score"] != -1]
+    if len(rows) != len(scored):
+        raise AssertionError(f"gate (a): {len(rows)} CSV rows for {len(scored)} scored images")
+    R = np.array([r[4].split() for r in rows], np.float64).reshape(-1, 3, 3)
+    t = np.array([r[5].split() for r in rows], np.float64).reshape(-1, 3)
+    if not (np.isfinite(R).all() and np.isfinite(t).all()):
+        raise AssertionError("gate (a): non-finite R or t in the CSV")
+    ortho = float(np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max()) if len(R) else 0.0
+    if ortho > 1e-4:
+        raise AssertionError(f"gate (a): CSV rotations off orthonormal by {ortho}")
+    return {"csv_rows": len(rows), "max_orthonormality_err": ortho}
+
+
+def _gate_eval_metrics(device, n_poses, n_points, seed):
+    """Gate (c): batched_pose_errors on `device` (f32) against float64: ADD
+    in numpy, ADI by torch.cdist in float64 (an independent algorithm), re
+    from the f64 trace; GT poses give 0; a symmetric estimate under sym_rots
+    gives re ~ 0."""
+    from checkerpose_tpu_torch.eval.metrics import batched_pose_errors
+    rng = np.random.default_rng(seed + 7)
+    pts = rng.uniform(-60, 60, (n_points, 3)).astype(np.float32)
+    Q, _ = np.linalg.qr(rng.standard_normal((2 * n_poses, 3, 3)))
+    Q[np.linalg.det(Q) < 0, :, 0] *= -1
+    R_gt, R_far = Q[:n_poses], Q[n_poses:]
+    # half the estimates within ~1 deg of the GT (Rodrigues), half anywhere
+    w = rng.normal(0, 0.01, (n_poses, 3))
+    ang = np.linalg.norm(w, axis=1)[:, None, None]
+    k = np.zeros((n_poses, 3, 3))
+    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    k -= k.transpose(0, 2, 1)
+    k /= ang
+    near = (np.eye(3) + np.sin(ang) * k + (1 - np.cos(ang)) * (k @ k)) @ R_gt
+    half = n_poses // 2
+    R_est = np.concatenate([near[:half], R_far[half:]]).astype(np.float32)
+    t_gt = np.stack([rng.uniform(-60, 60, n_poses), rng.uniform(-60, 60, n_poses),
+                     rng.uniform(350, 550, n_poses)], -1)
+    t_est = (t_gt + rng.normal(0, 3.0, (n_poses, 3))).astype(np.float32)
+    R_gt, t_gt = R_gt.astype(np.float32), t_gt.astype(np.float32)
+    on = [torch.as_tensor(a, device=device) for a in (R_est, t_est, R_gt, t_gt, pts)]
+    p64 = pts.astype(np.float64)
+    pe = np.einsum("vk,bjk->bvj", p64, R_est.astype(np.float64)) + t_est[:, None].astype(np.float64)
+    pg = np.einsum("vk,bjk->bvj", p64, R_gt.astype(np.float64)) + t_gt[:, None].astype(np.float64)
+    ref = {"add": np.linalg.norm(pe - pg, axis=-1).mean(-1),
+           "te": np.linalg.norm(t_est.astype(np.float64) - t_gt, axis=-1),
+           "re": np.degrees(np.arccos(np.clip(
+               (np.einsum("bij,bij->b", R_est.astype(np.float64), R_gt) - 1) / 2, -1, 1)))}
+    pe_d, pg_d = torch.as_tensor(pe, device=device), torch.as_tensor(pg, device=device)
+    ref["adi"] = np.array([float(torch.cdist(pg_d[b], pe_d[b]).amin(1).mean())
+                           for b in range(n_poses)])
+    del pe_d, pg_d
+    res = {}
+    for name, use_adi in (("add", False), ("adi", True)):
+        got = {k: v.double().cpu().numpy() for k, v in batched_pose_errors(
+            *on, use_adi=use_adi).items()}
+        err = np.abs(got["adx"] - ref[name])
+        res[f"{name}_max_abs_err_mm"] = float(err.max())
+        if (err > METRIC_ATOL_MM + METRIC_RTOL * np.abs(ref[name])).any():
+            raise AssertionError(f"gate (c): {name.upper()} off the float64 reference by up to "
+                                 f"{err.max()} mm")
+    res["te_max_abs_err_mm"] = float(np.abs(got["te"] - ref["te"]).max())
+    res["re_max_abs_err_deg"] = float(np.abs(got["re"] - ref["re"]).max())
+    if res["te_max_abs_err_mm"] > METRIC_ATOL_MM + METRIC_RTOL * ref["te"].max() \
+            or res["re_max_abs_err_deg"] > METRIC_RE_DEG:
+        raise AssertionError(f"gate (c): te / re off the float64 reference: {res}")
+    zero = batched_pose_errors(on[2], on[3], on[2], on[3], on[4], use_adi=True)
+    zero_add = batched_pose_errors(on[2], on[3], on[2], on[3], on[4])
+    res["gt_pose_max"] = {"adi": float(zero["adx"].max()), "add": float(zero_add["adx"].max()),
+                          "te": float(zero["te"].max()), "re_deg": float(zero["re"].max())}
+    if max(res["gt_pose_max"]["adi"], res["gt_pose_max"]["add"], res["gt_pose_max"]["te"]) != 0 \
+            or res["gt_pose_max"]["re_deg"] > METRIC_RE_DEG:
+        raise AssertionError(f"gate (c): GT poses do not give 0: {res['gt_pose_max']}")
+    flip = np.diag([-1.0, -1.0, 1.0]).astype(np.float32)      # 180 deg about z
+    sym = torch.as_tensor(np.stack([np.eye(3, dtype=np.float32), flip]), device=device)
+    R_sym = on[2] @ sym[1]
+    sym_re = batched_pose_errors(R_sym, on[3], on[2], on[3], on[4], sym_rots=sym)["re"]
+    res["sym_re_max_deg"] = float(sym_re.max())
+    if res["sym_re_max_deg"] > METRIC_RE_DEG:
+        raise AssertionError(f"gate (c): symmetric poses give re {res['sym_re_max_deg']} deg")
+    return res
+
+
+def _first_test_batch(cfg, n_images):
+    """(keypoints (N, 3), knn, the first batch of `n_images` test crops with
+    the normalised keypoints), as the test CLI's loader gives them."""
+    from checkerpose_tpu_torch.cli import common
+    xyz, normed, knn = common.load_keypoints(cfg)
+    loader, _ = common.build_test_loader(cfg, xyz, batch_size=n_images)
+    return xyz, knn, next(iter(common.with_p3d(loader, normed.astype(np.float32))))
+
+
+def _restored_net(cfg, npoint, device, dtype=torch.bfloat16):
+    """The PoseNet of the eval phase's best checkpoint, in eval mode."""
+    from checkerpose_tpu_torch.cli.train import build_pose_net
+    from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
+    net = build_pose_net(cfg, npoint, dtype=dtype)
+    net.load_state_dict(CheckpointManager(cfg["ckpt_dir"]).restore_raw(best=True)["model"])
+    return net.to(device).eval()
+
+
+def _gate_eval_card_vs_cpu(device, cfg, n_images, seed):
+    """Gate (d): the harness over the first `n_images` test images in f32
+    on `device` and on the CPU, from the saved weights and the same seed:
+    seg metrics, bit errors and the filters' correspondence counts agree."""
+    from checkerpose_tpu_torch.cli import common
+    from checkerpose_tpu_torch.eval.harness import evaluate_pipeline
+
+    xyz, knn, batch = _first_test_batch(cfg, n_images)
+    out = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        net = _restored_net(cfg, len(xyz), dev, dtype=torch.float32)
+        out[name] = evaluate_pipeline(net, knn, [batch], xyz, common.object_diameter(cfg),
+                                      stage=net.num_refine_steps, seed=seed,
+                                      **common.solver_kwargs(cfg))
+    a, b = out["card"], out["cpu"]
+    diff = {"seg_acc": abs(a["seg_acc"] - b["seg_acc"]),
+            "seg_iou": abs(a["seg_iou"] - b["seg_iou"]),
+            "bit_err": float(np.abs(np.subtract(a["bit_err"], b["bit_err"])).max()),
+            "n_valid_mean_rel": max(abs(a[m]["n_valid_mean"] - b[m]["n_valid_mean"])
+                                    / max(1.0, b[m]["n_valid_mean"])
+                                    for m in ("none", "full", "visib"))}
+    if max(diff.values()) > EVAL_CARD_CPU_TOL:
+        raise AssertionError(f"gate (d): the card's f32 harness disagrees with the CPU's: "
+                             f"{diff} (bar {EVAL_CARD_CPU_TOL})")
+    return {"images": n_images, "diff": diff,
+            "card": {k: a[k] for k in ("seg_acc", "seg_iou")},
+            "cpu": {k: b[k] for k in ("seg_acc", "seg_iou")}}
+
+
+def _balance_seg_head(net, cfg, device, n_images=8):
+    """Centre the random seg head on the first test crops: its bias minus the
+    median of its logits there, per channel, so about half of a crop reads
+    as object. Untouched, the random head calls no pixel object: the visib
+    filter keeps no correspondence and the seg metrics compare zeros."""
+    from checkerpose_tpu_torch.models.posenet import knn_tensor
+    from checkerpose_tpu_torch.train import steps
+
+    xyz, knn, batch = _first_test_batch(cfg, n_images)
+    logits = []
+    hook = net.seg_block.register_forward_hook(lambda m, i, o: logits.append(o.float()))
+    try:
+        net.eval()
+        steps.make_pose_forward(net, knn_tensor(knn, len(xyz), device), net.num_refine_steps)(
+            {k: torch.as_tensor(batch[k], device=device) for k in ("image", "p3d_normed")})
+    finally:
+        hook.remove()
+        net.train()
+    with torch.no_grad():
+        net.seg_block.bias -= logits[0].transpose(0, 1).reshape(logits[0].shape[1], -1) \
+            .median(1).values.to(net.seg_block.bias.dtype)
+
+
+def _split_spans(spans, n_images):
+    """Per-batch host seconds of the harness's phases -> ms per batch over
+    every batch and over the batches after the first (the first pays the
+    card's one-time set-up: cuDNN's algorithm choice, the EdgeConv folds),
+    and images/s over each."""
+    first = {k: 1e3 * v[0] for k, v in spans.items()}
+    rest = {k: 1e3 * float(np.mean(v[1:])) if len(v) > 1 else None for k, v in spans.items()}
+    n_batches = len(spans["forward_decode"])
+    total = sum(sum(v) for v in spans.values())
+    per_image_rest = (sum(rest.values()) / 1e3 * n_batches / n_images
+                      if n_batches > 1 else None)
+    return {"ms_per_batch": {k: 1e3 * float(np.mean(v)) for k, v in spans.items()},
+            "ms_first_batch": first, "ms_per_batch_after_first": rest,
+            "images_per_s": n_images / total,
+            "images_per_s_after_first": 1.0 / per_image_rest if per_image_rest else None}
+
+
+def _host_crop_ms(cfg, n_items):
+    """ms per test item of the crop dataset on one host thread (frame-cache
+    read, crop and numpy resize of image and masks, projection): what the
+    loader's prefetch thread spends per image."""
+    from checkerpose_tpu_torch.cli import common
+    xyz, _, _ = common.load_keypoints(cfg)
+    loader, _ = common.build_test_loader(cfg, xyz, batch_size=1)
+    t0 = time.perf_counter()
+    for i in range(n_items):
+        loader.ds[i]
+    return 1e3 * (time.perf_counter() - t0) / n_items
+
+
+def _eval_warm_batch(device, cfg, batch_size, seed, repeats=3):
+    """One warm batch of the hard sweep (forward, decode, solver, metrics)
+    from a list, so no loader thread runs beside it: host ms per phase
+    (mean of `repeats`, device synchronised at each phase's end; None off
+    the card), then the kernels it launches and their device ms from
+    torch.profiler."""
+    from checkerpose_tpu_torch.cli import common
+    from checkerpose_tpu_torch.eval.harness import evaluate_pipeline
+
+    xyz, knn, batch = _first_test_batch(cfg, batch_size)
+    net = _restored_net(cfg, len(xyz), device)
+
+    def run(spans=None):
+        evaluate_pipeline(net, knn, [batch], xyz, common.object_diameter(cfg),
+                          stage=net.num_refine_steps, seed=seed, spans=spans,
+                          **common.solver_kwargs(cfg))
+    run()
+    spans = {}
+    for _ in range(repeats):
+        run(spans)
+    host_ms = {k: 1e3 * float(np.mean(v)) if device.type == "cuda" else None
+               for k, v in spans.items() if k != "loader"}
+    return host_ms, *count_kernel_launches(run, device)
+
+
+def phase_eval(device, root=None, n_test=128, n_calib=16, n_scenes=2, batch=64,
+               n_vertices=2048, cfg_overrides=None, metric_poses=512, metric_points=8192,
+               ref_images=8, seed=0):
+    """The evaluation entry point `cli.test.main` at the synthetic flagship's
+    width on a fixture the port generates (n_scenes x n_test test images,
+    n_scenes x n_calib train_real images for the tau calibration), hard and
+    adaptive with the tau calibrated; gates (a)-(d) raise."""
+    import shutil
+    from checkerpose_tpu_torch.cli import common, test as cli_test
+    from checkerpose_tpu_torch.cli.train import build_pose_net
+    from checkerpose_tpu_torch.data.synthetic import make_synthetic_bop
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+    from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
+    from checkerpose_tpu_torch.train.state import create_pose_state, make_optimizer
+
+    on_card = device.type == "cuda"
+    root = Path(root) if root is not None else ROOT / "build" / "eval_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_bop(str(root / "data"), n_objects=1, n_scenes=n_scenes,
+                       folders={"test": n_test, "train_real": n_calib},
+                       n_vertices=n_vertices, raw_cache=True, write_png=False, seed=seed)
+    gen_s = time.perf_counter() - t0
+    res = {"fixture_s": gen_s if on_card else None, "cv2_importable": _cv2_importable(),
+           "fixture": {"test_images": n_scenes * n_test, "calib_images": n_scenes * n_calib,
+                       "vertices": n_vertices}}
+    say(f"[eval] fixture: {n_scenes} x {n_test} test + {n_scenes} x {n_calib} train_real "
+        f"images, {n_vertices} vertices, frame cache only, generated in {res['fixture_s']} s "
+        f"on the host; cv2 importable: {res['cv2_importable']}")
+
+    data = str(root / "data")
+    cfg = common.resolve_cfg(str(ROOT / EVAL_CFG), "obj01", dict(
+        cfg_overrides or {}, bop_path=data,
+        Detection_reaults=f"{data}/detection_results/synth/synth_detections.json",
+        ckpt_dir=str(root / "ckpt"), eval_output_path=str(root / "out"),
+        test_batch_size=batch, device=device.type))
+    npoint = 2 ** int(cfg["num_p3d_log2"])
+    net = build_pose_net(cfg, npoint)
+    state = create_pose_state(net, make_optimizer(1e-4), seed=seed, device=device)
+    _balance_seg_head(net, cfg, device)
+    CheckpointManager(cfg["ckpt_dir"]).save_best(state)
+    del net, state
+
+    n_images = n_scenes * n_test
+    csv_path = root / "out" / f"{Path(EVAL_CFG).stem}_obj01.csv"
+    test_batches = -(-n_images // batch)
+    calib_batches = 5 * -(-min(32, n_scenes * n_calib) // 16)     # 5 taus, val slice at 16
+    for mode, forwards in (("hard", test_batches), ("adaptive", calib_batches + test_batches)):
+        run_cfg = dict(cfg, decode_mode=mode, decode_tau_auto=(mode == "adaptive") or None)
+        spans = {} if mode == "hard" else None
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = cli_test.main(run_cfg, spans=spans)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        by_route = dict(edgeconv_fused.launches_by_route)
+        want = {"tc": EDGECONV_PER_FORWARD * forwards if on_card else 0, "fma": 0}
+        if by_route != want:
+            raise AssertionError(f"gate (b): {mode} run's EdgeConv launches {by_route}, "
+                                 f"expected {want} ({EDGECONV_PER_FORWARD} x {forwards} "
+                                 f"forward batches, all on the tensor-core route)")
+        run = {"cli_wall_s": wall if on_card else None, "forward_batches": forwards,
+               "edgeconv_launches_by_route": by_route,
+               **_gate_eval_report(report, csv_path, n_images, mode == "adaptive"),
+               "adx10": {m: report[m]["adx10"] for m in ("none", "full", "visib")},
+               "n_valid_mean": {m: report[m]["n_valid_mean"] for m in ("none", "full", "visib")},
+               "seg_acc": report["seg_acc"], "seg_iou": report["seg_iou"]}
+        if mode == "hard":
+            split = _split_spans(spans, n_images)
+            if not on_card:                              # no device number off the card
+                split = {k: ({m: None for m in v} if isinstance(v, dict) else None)
+                         for k, v in split.items()}
+            run.update(split, peak_mem_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                                            if on_card else None))
+            say(f"[eval] hard: cli.test.main over {n_images} images at batch {batch}: "
+                f"{run['images_per_s']} images/s over the sweep, "
+                f"{run['images_per_s_after_first']} after the first batch "
+                f"({run['cli_wall_s']} s for the whole CLI call); ms per batch (host clock, "
+                f"device synchronised at each phase's end): mean {run['ms_per_batch']}, first "
+                f"{run['ms_first_batch']}, after the first {run['ms_per_batch_after_first']}; "
+                f"peak {run['peak_mem_gib']} GiB; EdgeConv launches {by_route} = "
+                f"{EDGECONV_PER_FORWARD} x {forwards} forward batches")
+        else:
+            run.update(tau=report["decode_conf_tau"], tau_sweep=report["tau_sweep"])
+            say(f"[eval] adaptive, tau calibrated on {min(32, n_scenes * n_calib)} train_real "
+                f"images: tau {run['tau']} (sweep {run['tau_sweep']}); {run['cli_wall_s']} s "
+                f"for the CLI call; EdgeConv launches {by_route} = {EDGECONV_PER_FORWARD} x "
+                f"{forwards} forward batches")
+        say(f"[eval] gate (a) {mode}: report keys, rates in [0, 1], {run['csv_rows']} CSV rows "
+            f"with finite R, t (orthonormal to {run['max_orthonormality_err']:.2e}); adx10 "
+            f"{run['adx10']}, seg_acc {run['seg_acc']:.4f}, seg_iou {run['seg_iou']:.4f}")
+        res[mode] = run
+
+    res["host_crop_ms_per_image"] = _host_crop_ms(cfg, min(n_images, 64)) if on_card else None
+    res["warm_batch_ms"], res["batch_launches"], res["batch_device_ms"] = _eval_warm_batch(
+        device, cfg, batch, seed)
+    say(f"[eval] one warm batch of {batch} from a list (no loader thread): ms by phase "
+        f"(host clock, device synchronised) {res['warm_batch_ms']}; {res['batch_launches']} "
+        f"kernel launches, {res['batch_device_ms']} ms of device time (profiler); the crop "
+        f"dataset takes {res['host_crop_ms_per_image']} ms an image on one host thread")
+
+    # the kernels at the shapes this path gives them (its batch), against
+    # the plain version; after the runs, so none of these launches counts
+    res["kernel_rows"] = phase_kernels(device, B=batch, N=npoint, K=int(cfg["network_graph_k"]),
+                                       seed=seed)
+
+    res["metrics_vs_f64"] = _gate_eval_metrics(device, metric_poses, metric_points, seed)
+    say(f"[eval] gate (c): metrics on {device.type}, f32, {metric_poses} poses x "
+        f"{metric_points} points against float64 (bars {METRIC_ATOL_MM:g} mm + "
+        f"{METRIC_RTOL:g} relative, re {METRIC_RE_DEG} deg): {res['metrics_vs_f64']}")
+    res["card_vs_cpu"] = _gate_eval_card_vs_cpu(device, cfg, ref_images, seed)
+    say(f"[eval] gate (d): harness card vs CPU, f32, first {ref_images} test images: "
+        f"{res['card_vs_cpu']['diff']} (bar {EVAL_CARD_CPU_TOL})")
+    return res
+
+
 KERNELS = {
     "tc": dict(name="edgeconv_fused_tc", source="checkerpose_tpu_torch/csrc/edgeconv_tc.cu",
                dtype="bfloat16", phase="serving",
                path="bf16 serving forward (phase serving); also the eval forward of the "
-                    "trained weights (phase train)"),
+                    "trained weights (phase train) and every forward batch of the test "
+                    "CLI (phase eval)"),
     "fma": dict(name="edgeconv_fused_fma", source="checkerpose_tpu_torch/csrc/edgeconv.cu",
                 dtype="float32", phase="reference",
                 path="f32 forward (phase reference); the bf16 serving path no longer "
@@ -1008,39 +1395,55 @@ KERNELS = {
 }
 
 
-def kernel_summary(rows, launches_by_route, train_eval_launches=None):
+def _per_forward(rows, route, dtype):
+    """A kernel's rows at the main-path widths in `dtype` -> (max |err|,
+    {ms, plain_ms, bound_ms} summed over one forward's launches, bound_by)."""
+    main = [r for r in rows if r["kernel"] == route and r["dtype"] == dtype
+            and not r["ragged"] and r["C"] in MAIN_WIDTHS]
+
+    def per_forward(key):
+        if any(r[key] is None for r in main):
+            return None                          # not measured (no card)
+        return sum(MAIN_WIDTHS[r["C"]] * r[key] for r in main)
+
+    bound_by = max(main, key=lambda r: MAIN_WIDTHS[r["C"]] * r["bound_ms"])["bound_by"]
+    return (max(r["max_abs_err"] for r in main),
+            {key: per_forward(key) for key in ("ms", "plain_ms", "bound_ms")}, bound_by, main)
+
+
+def kernel_summary(rows, launches_by_route, train_eval_launches=None, eval_launches=None,
+                   eval_rows=None):
     """One entry per kernel for the JSON line. `launches` is the count of
     the path that runs the kernel (the serving phase for the tensor-core
     kernel, the reference phase's f32 forward for the FMA kernel);
     `launches_by_path` adds the count of the eval forward that ends the train
-    phase, each path counted from 0. Times are per forward of that path: 2
-    launches at C=C'=64 + 9 at C=C'=256 in the path's dtype."""
+    phase and, when given, of the eval phase's hard run of the test CLI, each
+    path counted from 0. Times are per forward of that path: 2 launches at
+    C=C'=64 + 9 at C=C'=256 in the path's dtype; `eval_rows` (the kernels
+    held against the plain version at the eval batch) add the same figures
+    at that batch under `at_eval_batch`."""
     entries = []
     for route, k in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == route]
-        main = [r for r in mine if r["dtype"] == k["dtype"] and not r["ragged"]
-                and r["C"] in MAIN_WIDTHS]
-
-        def per_forward(key):
-            if any(r[key] is None for r in main):
-                return None                      # not measured (no card)
-            return sum(MAIN_WIDTHS[r["C"]] * r[key] for r in main)
-
-        bound_by = max(main, key=lambda r: MAIN_WIDTHS[r["C"]] * r["bound_ms"])["bound_by"]
+        max_err, times, bound_by, main = _per_forward(rows, route, k["dtype"])
         entries.append({
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": "checkerpose_tpu/ops/pallas_edgeconv.py:79",
             "launches": launches_by_route[route], "launches_on": k["path"],
             "launches_by_path": {k["phase"]: launches_by_route[route],
-                                 "train_eval": (train_eval_launches or {}).get(route)},
-            "max_abs_err": max(r["max_abs_err"] for r in main),
-            "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
-            "bound_ms": per_forward("bound_ms"), "bound_by": bound_by,
+                                 "train_eval": (train_eval_launches or {}).get(route),
+                                 **({"eval": eval_launches.get(route)}
+                                    if eval_launches is not None else {})},
+            "max_abs_err": max_err, **times, "bound_by": bound_by,
             "library_ms": None,
             "per": f"one forward: 2 launches at C=C'=64 + 9 at C=C'=256, {k['dtype']}, "
                    f"B={main[0]['B']} N={main[0]['N']} K={main[0]['K']}",
             "shapes": mine,
         })
+        if eval_rows is not None:
+            e_err, e_times, e_by, e_main = _per_forward(eval_rows, route, k["dtype"])
+            entries[-1]["at_eval_batch"] = {"B": e_main[0]["B"], "max_abs_err": e_err,
+                                            **e_times, "bound_by": e_by}
     return entries
 
 
@@ -1079,13 +1482,17 @@ def main(argv=None) -> int:
     phase_oracle(device, seed=args.seed)
     fold = phase_fold_cost(device)
     train = phase_train(device, seed=args.seed, profile_dir=args.profile)
+    evaluation = phase_eval(device, seed=args.seed)
 
     launches = {"tc": serving["edgeconv_launches_by_route"]["tc"],
                 "fma": reference["f32"]["edgeconv_launches_by_route"]["fma"]}
     print(json.dumps({"serving": serving, "fold": fold, "card": card}))
     print(json.dumps({"train": train, "card": card}))
+    eval_rows = evaluation.pop("kernel_rows")
+    print(json.dumps({"eval": evaluation, "card": card}))
     print(json.dumps({"kernels": kernel_summary(
-        rows, launches, train["eval_after_training"]["edgeconv_launches_by_route"])}))
+        rows, launches, train["eval_after_training"]["edgeconv_launches_by_route"],
+        evaluation["hard"]["edgeconv_launches_by_route"], eval_rows)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Port ServingPipeline vs the JAX ServingPipeline, the port's import rule,
 its device convention, and a CPU rehearsal of chip_smoke.py's phases."""
 import ast
+import json
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ from checkerpose_tpu.models import PoseNet as FlaxPoseNet
 from checkerpose_tpu.ops.geometry import pc_normalize
 from checkerpose_tpu.ops.knn import knn_index
 from checkerpose_tpu.serving import ServingPipeline as JaxServingPipeline
+from checkerpose_tpu_torch.cli import test as cli_test
 from checkerpose_tpu_torch.models.posenet import PoseNet, make_posenet
 from checkerpose_tpu_torch.serving import ServingPipeline
 from checkerpose_tpu_torch.solver.ransac import solve_poses_batched
@@ -99,6 +102,8 @@ def test_entry_points_default_to_the_card(setup):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve_poses_batched(s["p3d"], np.zeros((1, NPT, 2)), np.ones((1, NPT)), K,
                             hyp_idx=np.zeros((1, 4, 6), np.int64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_test.main({})                        # before it reads any file
 
 
 def test_pipeline_rejects_bad_graph_and_mode(setup):
@@ -197,6 +202,46 @@ def test_chip_smoke_train_phase_rehearsed_on_cpu(tmp_path):
         chip_smoke.phase_kernels(dev, B=1, N=32, K=4, widths=(64, 256), iters=1, plain_iters=1),
         {"tc": 55, "fma": 11}, after["edgeconv_launches_by_route"])
     assert tc["launches"] == 55 and tc["launches_by_path"] == {"serving": 55, "train_eval": 0}
+
+
+def test_chip_smoke_eval_phase_rehearsed_on_cpu(tmp_path, monkeypatch):
+    """phase_eval at tiny size on the CPU with cv2 and PIL unimportable: the
+    port's fixture, the test CLI hard and adaptive with every gate, and no
+    device number made up off the card."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    res = chip_smoke.phase_eval(
+        torch.device("cpu"), root=tmp_path, n_test=3, n_calib=2, batch=4, n_vertices=64,
+        cfg_overrides=dict(init_network_backbone_name="hrnet_w18_small", num_p3d_log2=4,
+                           network_graph_k=5, init_network_graph_k=5),
+        metric_poses=6, metric_points=300, ref_images=2)
+    assert res["cv2_importable"] is False and res["fixture"]["test_images"] == 6
+    hard, adaptive = res["hard"], res["adaptive"]
+    assert hard["forward_batches"] == 2 and adaptive["forward_batches"] == 2 + 5
+    assert hard["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}    # no card, no launch
+    assert adaptive["tau"] in adaptive["tau_sweep"]
+    assert res["card_vs_cpu"]["diff"] == {"seg_acc": 0.0, "seg_iou": 0.0, "bit_err": 0.0,
+                                          "n_valid_mean_rel": 0.0}     # the CPU against itself
+    assert res["metrics_vs_f64"]["gt_pose_max"]["add"] == 0.0
+    assert res["fixture_s"] is None and res["host_crop_ms_per_image"] is None
+    assert res["batch_launches"] is None and res["batch_device_ms"] is None
+    assert sorted(res["warm_batch_ms"]) == ["aggregate", "forward_decode", "solver_metrics"]
+    assert set(res["warm_batch_ms"].values()) == {None}
+    assert hard["images_per_s"] is None and hard["images_per_s_after_first"] is None
+    assert hard["peak_mem_gib"] is None and hard["cli_wall_s"] is None
+    for key in ("ms_per_batch", "ms_first_batch", "ms_per_batch_after_first"):
+        assert sorted(hard[key]) == ["aggregate", "forward_decode", "loader", "solver_metrics"]
+        assert set(hard[key].values()) == {None}
+    assert (tmp_path / "out" / "hr18GNN2_res6_gnn3Skip_mlpQuery_synth_obj01.csv").exists()
+    eval_rows = res.pop("kernel_rows")          # held at the eval batch, N and K
+    assert {(r["B"], r["N"], r["K"]) for r in eval_rows if not r["ragged"]} == {(4, 16, 5)}
+    tc, _ = chip_smoke.kernel_summary(
+        chip_smoke.phase_kernels(torch.device("cpu"), B=1, N=32, K=4, widths=(64, 256),
+                                 iters=1, plain_iters=1),
+        {"tc": 55, "fma": 11}, {"tc": 11, "fma": 0}, {"tc": 44, "fma": 0}, eval_rows)
+    assert tc["launches_by_path"] == {"serving": 55, "train_eval": 11, "eval": 44}
+    assert tc["at_eval_batch"]["B"] == 4 and tc["at_eval_batch"]["ms"] is None
+    json.dumps(res)                              # the phase's JSON line serialises
 
 
 def test_edgeconv_bound_matches_the_issue_table():

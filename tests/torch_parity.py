@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from checkerpose_tpu_torch.models.convert import flax_to_torch
+from checkerpose_tpu_torch.solver.ransac import solve_poses_batched as port_solve
+
+N_HYP = 16    # hypotheses of the stand-in solver
 
 
 def random_variables(module, *args, seed: int = 0, bn_scale=(0.5, 1.5), **kwargs):
@@ -73,3 +76,20 @@ def require_cuda():
     time, so every pytest-xdist worker collects the same tests)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+def standin_solver(p3d, p2d, valid, K, _draws, device=None, **kw):
+    """A deterministic `solve_poses_batched` for both packages' harnesses
+    (monkeypatched into each harness module): the port's solver on the CPU
+    with hypothesis indices fixed by the shapes; jnp arrays back to the JAX
+    harness, tensors to the port's."""
+    as_np = (lambda a: a.cpu().numpy()) if isinstance(p2d, torch.Tensor) else np.array
+    B, N = p2d.shape[:2]
+    hyp = np.argsort(np.random.default_rng(N).random((B, N_HYP, N)), -1)[..., :6]
+    kw.pop("num_hyp", None)
+    sol = port_solve(as_np(p3d), as_np(p2d), as_np(valid), as_np(K), hyp_idx=hyp,
+                     device="cpu", **kw)
+    if isinstance(p2d, torch.Tensor):
+        return sol
+    import jax.numpy as jnp
+    return {k: jnp.asarray(v.numpy()) for k, v in sol.items()}

@@ -1,11 +1,10 @@
 """Shared CLI plumbing, single-object part: config-driven dataset and
-loader construction (counterpart of checkerpose_tpu/cli/common.py, same cfg
-keys and path conventions: checkpoint and log dirs are
-<base>/<cfg_name>/<obj_name>).
+loader construction and the pretrained-backbone graft (counterpart of
+checkerpose_tpu/cli/common.py, same cfg keys and path conventions:
+checkpoint and log dirs are <base>/<cfg_name>/<obj_name>).
 
-Not ported yet (ROADMAP queue 1): the multi-object LM part
-(`resolve_cfg_lm`, `load_keypoints_lm`, `build_train_loaders_lm`) and the
-NOCS backbone graft (`maybe_graft_pretrained_backbone`).
+Not ported yet (ROADMAP queue 1, item 4): the multi-object LM part
+(`resolve_cfg_lm`, `load_keypoints_lm`, `build_train_loaders_lm`).
 """
 from __future__ import annotations
 
@@ -22,7 +21,10 @@ from checkerpose_tpu_torch.data.dataset_info import get_obj_info
 from checkerpose_tpu_torch.data.detections import attach_detections, load_detections
 from checkerpose_tpu_torch.data.fps import load_keypoints_normed
 from checkerpose_tpu_torch.data.framestore import FrameCache
+from checkerpose_tpu_torch.models.convert import graft_backbone
 from checkerpose_tpu_torch.ops.knn import knn_index
+from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
+from checkerpose_tpu_torch.train.state import TrainState
 
 
 def resolve_cfg(cfg_path: str, obj_name: str, overrides: Optional[Dict] = None) -> Dict:
@@ -189,3 +191,51 @@ def checkpoint_dir_arg(ckpt_dir, ckpt_file):
 def object_diameter(cfg: Dict) -> float:
     info = load_models_info(cfg["bop_path"], cfg["dataset_name"], eval_models=False)
     return float(info[cfg["obj_id"]]["diameter"])
+
+
+def maybe_graft_pretrained_backbone(cfg: Dict, state: TrainState) -> TrainState:
+    """Graft a pretrained backbone into a fresh InitNet state when cfg
+    `backbone_pretrain_checkpoint` names a checkpoint dir: the `backbone.*`
+    entries of its latest checkpoint's model go into `state.module` in place,
+    validated entry by entry (models/convert.py::graft_backbone). The NOCS
+    network (cli/pretrain_backbone.py in the JAX package) writes such
+    checkpoints; an InitNet checkpoint has the same backbone entries. It
+    stands in for the reference's ImageNet-pretrained timm weights
+    (`model/backbone.py:39-50`), which need a network. Only at step 0: a
+    resumed run already carries its further-trained backbone.
+
+    A dir with no checkpoint trains the backbone from scratch with a warning,
+    or raises FileNotFoundError under CHECKERPOSE_REQUIRE_BACKBONE_GRAFT=1."""
+    bk_ck = cfg.get("backbone_pretrain_checkpoint")
+    if not bk_ck or int(state.step) != 0:
+        return state
+    strict = os.environ.get("CHECKERPOSE_REQUIRE_BACKBONE_GRAFT", "0") == "1"
+    # existence is checked on the filesystem first: a CheckpointManager at a
+    # mistyped path would create the directory, which hides the mistake
+    has_step = os.path.isdir(bk_ck) and any(d.isdigit() for d in os.listdir(bk_ck))
+    if not has_step:
+        msg = f"backbone_pretrain_checkpoint={bk_ck} has no numbered checkpoint step"
+        if strict:
+            # for runs where the graft carries the result: a silent
+            # from-scratch run would void them without any failure
+            raise FileNotFoundError(msg + " and CHECKERPOSE_REQUIRE_BACKBONE_GRAFT=1")
+        # otherwise fail soft, so a scheduler that restarts the run is not
+        # caught in a retry loop: train from scratch, loudly
+        print(f"WARNING: {msg}; training the backbone from scratch", flush=True)
+        return state
+    mgr = CheckpointManager(bk_ck)
+    if mgr.latest_step() is None:
+        if strict:
+            raise FileNotFoundError(f"backbone_pretrain_checkpoint={bk_ck}: no restorable "
+                                    "step (CHECKERPOSE_REQUIRE_BACKBONE_GRAFT=1)")
+        print(f"WARNING: backbone_pretrain_checkpoint={bk_ck} has no checkpoint; "
+              "training the backbone from scratch", flush=True)
+        return state
+    raw = mgr.restore_raw()
+    backbone = {k[len("backbone."):]: v for k, v in raw["model"].items()
+                if k.startswith("backbone.")}
+    state.module.load_state_dict(graft_backbone(state.module.state_dict(), backbone, into=""))
+    print(f"grafted NOCS-pretrained backbone from {bk_ck} (step {int(raw['step'])})",
+          flush=True)
+    return TrainState(module=state.module, optimizer=state.optimizer, step=0,
+                      best_score=state.best_score)

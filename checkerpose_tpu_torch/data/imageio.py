@@ -4,12 +4,24 @@ The port's data path needs neither (frames and masks come from the frame
 cache, `data/framestore.py`, and crops are resized in numpy, `ops/crop.py`);
 a file is decoded or encoded only through these helpers, and a decode with
 no codec installed raises an error that says how to do without one.
+
+Depth maps (BOP ships them as 16-bit single-channel PNGs) go through
+`read_depth_png` / `write_depth_png`, values unchanged, by a small zlib codec
+of this module's own for 16-bit (and 8-bit) grayscale PNG, whichever image
+library is installed, so that VSD scoring and the synthetic fixture read and
+write them one way. Rows with the none, sub or up filter decode in numpy;
+average and Paeth rows go through a per-byte loop. `png_size` reads a PNG's
+width and height from its header alone.
 """
 from __future__ import annotations
 
-from typing import Optional
+import struct
+import zlib
+from typing import Optional, Tuple
 
 import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
 
 class NoImageCodecError(RuntimeError):
@@ -70,3 +82,114 @@ def write_png(path: str, img: np.ndarray) -> bool:
         return False
     Image.fromarray(np.ascontiguousarray(img)).save(path)
     return True
+
+
+def png_size(path: str) -> Optional[Tuple[int, int]]:
+    """(width, height) from a PNG's IHDR chunk, reading 24 bytes; None when
+    the file is missing or is no PNG."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(24)
+    except OSError:
+        return None
+    if len(head) < 24 or head[:8] != _PNG_SIG or head[12:16] != b"IHDR":
+        return None
+    return struct.unpack(">II", head[16:24])
+
+
+def read_depth_png(path: str) -> Optional[np.ndarray]:
+    """A single-channel PNG as stored ((H, W) uint16 for a 16-bit file);
+    None when the file is missing or is no non-interlaced grayscale PNG."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    return decode_gray_png(data)
+
+
+def write_depth_png(path: str, depth: np.ndarray) -> None:
+    """Write (H, W) uint16 as a 16-bit grayscale PNG, values unchanged."""
+    with open(path, "wb") as f:
+        f.write(encode_gray16_png(np.ascontiguousarray(depth, np.uint16)))
+
+
+def _chunk(tag: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + tag + body
+            + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+
+def encode_gray16_png(depth: np.ndarray) -> bytes:
+    """PNG bytes of (H, W) uint16: one IDAT, filter type 0 on every row,
+    samples big-endian."""
+    h, w = depth.shape
+    rows = np.zeros((h, 1 + 2 * w), np.uint8)          # column 0: the filter byte
+    rows[:, 1:] = depth.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)
+    return (_PNG_SIG + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def _unfilter_row(ftype: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo one PNG row filter (0 none, 1 sub, 2 up, 3 average, 4 Paeth) on
+    uint8 bytes, given the row above already reconstructed."""
+    if ftype == 0:
+        return row
+    if ftype == 2:
+        return row + prior                              # uint8 arithmetic wraps mod 256
+    if ftype == 1:
+        # x[i] = raw[i] + x[i - bpp]: a running sum along each byte lane
+        lanes = row.reshape(-1, bpp).astype(np.int64)
+        return (np.cumsum(lanes, axis=0) % 256).astype(np.uint8).reshape(-1)
+    if ftype not in (3, 4):
+        raise ValueError(f"PNG filter type {ftype}")
+    out = bytearray(row.tobytes())
+    up = prior.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if ftype == 3:
+            pred = (a + b) >> 1
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (out[i] + pred) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_gray_png(data: bytes) -> Optional[np.ndarray]:
+    """(H, W) uint16 or uint8 of a non-interlaced 16- or 8-bit grayscale PNG;
+    None for anything else (another colour type, bit depth or interlace)."""
+    if data[:8] != _PNG_SIG:
+        return None
+    pos, idat, hdr = 8, [], None
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        return None
+    w, h, depth, color, _, _, interlace = hdr
+    if color != 0 or depth not in (8, 16) or interlace != 0:
+        return None
+    bpp = depth // 8
+    stride = 1 + w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < h * stride:
+        return None
+    raw = raw[:h * stride].reshape(h, stride)
+    out = np.empty((h, w * bpp), np.uint8)
+    prior = np.zeros(w * bpp, np.uint8)
+    for y in range(h):
+        prior = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prior, bpp)
+    if depth == 8:
+        return out
+    return out.view(">u2").reshape(h, w).astype(np.uint16)

@@ -13,9 +13,11 @@ that take in the pixels OpenCV's outline would (within half a pixel of an
 edge), and each vertex is a filled disc with the rows of OpenCV's midpoint
 circle. The frames and masks go into the frame cache (`data/framestore.py`),
 and into PNG files only where an image codec imports; with none, the cache
-is written whatever `raw_cache` says. Not written yet: the scene depth PNGs
-of the `test` split, which VSD scoring reads; they wait for the port of
-`eval/renderer.py` (ROADMAP queue 1, item 2).
+is written whatever `raw_cache` says. The `test` split's scene depth maps
+(what VSD scoring reads) are rendered from the mesh (`eval/renderer.py`) and
+always written as 16-bit PNGs in mm by the package's own encoder
+(`data/imageio.py::write_depth_png`), codec or none; rendering draws
+nothing from the random stream.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from scipy.spatial import ConvexHull
 from checkerpose_tpu_torch.data.framestore import FrameCacheWriter
 from checkerpose_tpu_torch.data import imageio
 from checkerpose_tpu_torch.data.ply import save_ply_vertices
+from checkerpose_tpu_torch.eval.renderer import render_depth
 from checkerpose_tpu_torch.ops.geometry import farthest_point_sample
 
 K_DEFAULT = np.array([[572.4114, 0.0, 325.2611],
@@ -250,6 +253,10 @@ def make_synthetic_bop(root: str, dataset: str = "synth", n_objects: int = 2,
                     "visib_fract": 1.0,
                 }]
                 if folder == "test":
+                    os.makedirs(os.path.join(scene_dir, "depth"), exist_ok=True)
+                    dep = render_depth(verts, faces[obj_id], R, t, K_DEFAULT, IM_W, IM_H)
+                    imageio.write_depth_png(os.path.join(scene_dir, "depth", f"{im_id:06d}.png"),
+                                            np.clip(dep, 0, 65535).astype(np.uint16))
                     # jittered detector boxes, one slightly-worse duplicate
                     jit = rng.integers(-6, 7, 4)
                     det_bbox = [int(bbox[0] + jit[0]), int(bbox[1] + jit[1]),

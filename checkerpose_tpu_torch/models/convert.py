@@ -18,7 +18,8 @@ Every leaf is consumed in both directions; an unknown leaf raises.
 The optimizer's state crosses too: optax Adam's `(count, mu, nu)`, given as
 numpy trees with the params' structure, <-> `torch.optim.Adam.state_dict()`
 (`adam_state_to_torch`, `adam_state_to_flax`), so that a run can be compared
-with the JAX package beyond its first step.
+with the JAX package beyond its first step. `graft_backbone` puts a
+pretrained backbone's entries into a model's state_dict.
 """
 from __future__ import annotations
 
@@ -160,3 +161,25 @@ def adam_state_to_flax(module: torch.nn.Module, optimizer: torch.optim.Optimizer
     stats = {k: v for k, v in module.state_dict().items() if k.endswith("running_mean")}
     return (count, torch_to_flax({**m_sd, **stats})["params"],
             torch_to_flax({**v_sd, **stats})["params"])
+
+
+def graft_backbone(state_dict: Mapping[str, torch.Tensor],
+                   backbone: Mapping[str, torch.Tensor],
+                   into: str = "init_net") -> Dict[str, torch.Tensor]:
+    """A copy of `state_dict` with the backbone's entries replaced by
+    `backbone` (keys relative to the backbone, e.g. a checkpoint's
+    `backbone.*` entries with the prefix taken off), under `<into>.backbone.`,
+    or `backbone.` when `into` is empty (an InitNet's own state_dict). Every
+    entry is validated first: a key the model lacks raises KeyError, a shape
+    that differs ValueError (the JAX package's leaf-by-leaf check)."""
+    prefix = f"{into}.backbone." if into else "backbone."
+    for k, v in backbone.items():
+        if prefix + k not in state_dict:
+            raise KeyError(f"converted key {prefix}{k} missing in model")
+        if tuple(state_dict[prefix + k].shape) != tuple(v.shape):
+            raise ValueError(f"shape mismatch at {prefix}{k}: "
+                             f"{tuple(state_dict[prefix + k].shape)} vs {tuple(v.shape)}")
+    out = dict(state_dict)
+    for k, v in backbone.items():
+        out[prefix + k] = v.to(dtype=state_dict[prefix + k].dtype)
+    return out

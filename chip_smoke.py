@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and evaluation paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, evaluation and workflow paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, as a user would run it
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler table
@@ -46,7 +46,30 @@ Phases (each raises on failure; the script then exits non-zero):
               images; both kernels against the plain version at the eval
               batch; eval images/s, ms per batch by phase (first batch and
               the rest), launches and device ms of a warm batch, the host
-              crop's ms per image, peak memory.
+              crop's ms per image, peak memory;
+  8. workflow a user's single-object workflow through the CLIs' `main`
+              functions on a fixture the port generates (1 object of 2048
+              vertices, 2 x 64 test images with depth PNGs, 2 x 128
+              train_real): the pretrain CLI (PRETRAIN_CFG, 20 iterations,
+              eval every 10), again for 2 with the first run's checkpoint as
+              `backbone_pretrain_checkpoint`, the train CLI (EVAL_CFG) from
+              the first run's init net for 20 and resumed to 30, the test
+              CLI, merge_csv, and eval_bop on a CSV of the GT poses and on
+              the test CLI's. Gates: (a) pretrain losses finite, report keys,
+              checkpoints, 2 tensor-core launches per eval batch; (b) the
+              grafted backbone equals the source bit for bit; (c) the init
+              net handoff, losses finite, 11 launches per eval batch, one
+              fold per EdgeConv per eval, the best checkpoint on the gate
+              score, the resume; (d) the kernel against the plain version on
+              the trained net's EdgeConv inputs of one eval batch; (e) GT
+              poses score AR 1 (VSD > 0.95), the test CLI's CSV finite ARs in
+              [0, 1], batched_bop_errors against float64 on the pairs of a
+              CSV of perturbed GT poses (0-20 degrees, 8 mm) and of the test
+              CLI's, each with the object's own symmetries and a continuous
+              one about z. Prints host ms per iteration without the evals
+              (mean, first, median of the later ones), seconds per eval,
+              peak memory, MSSD + MSPD device ms and VSD's host ms per
+              rendered frame.
 Then one JSON line with the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -1382,12 +1405,562 @@ def phase_eval(device, root=None, n_test=128, n_calib=16, n_scenes=2, batch=64,
     return res
 
 
+# the workflow phase: the synthetic flagship's pretraining config (hrnet_w18,
+# 512 keypoints, K=20, res_log2 3, GT crop 128, batch 64, Adam 2e-4) and its
+# training config, EVAL_CFG (the network of the eval phase, stage 3, aux
+# refine heads, teacher forcing 0.5, coordinate regression 0.25, batch 64,
+# adaptive decode tau 5)
+PRETRAIN_CFG = "config/synth/init_gnn2_hrnetw18_npt512_synth.txt"
+INIT_EDGECONVS = 2                  # EdgeConv launches per InitNet forward (C=64)
+INIT_EVAL_KEYS = ("acc_mask", "acc_x", "acc_y", "bit_err", "test_acc")
+GATE_METRIC = "one_minus_mean_bit_err"
+# gate (e): batched_bop_errors (f32, on the card) against float64 numpy
+BOP_ERR_RTOL, BOP_ERR_ATOL = 1e-4, 1e-3
+
+
+class _Tee:
+    """Copies what is printed into a list of lines while it goes through."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self):
+        return "".join(self.text).splitlines()
+
+
+def _wrapped(owner, name, wrap):
+    """Within the block, `owner.name` is `wrap(original)`."""
+    from unittest import mock
+    return mock.patch.object(owner, name, wrap(getattr(owner, name)))
+
+
+def _run_cli(device, main, cfg, eval_owner, eval_name, timed_owner):
+    """One CLI run, counted from 0: its printed lines, returned value, and
+    per eval the EdgeConv launches by route, forward batches, folds per
+    EdgeConv, the report, its start and the seconds (the card synchronised);
+    the host seconds inside run_training, the host clock at the entry of
+    every training step and the peak device memory."""
+    from contextlib import redirect_stdout
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+
+    evals, loop_s, stamps = [], [], []
+
+    def count_eval(orig):
+        def wrapped(net, knn, variables_or_loader, *a, **k):
+            # evaluate_init(net, knn, loader, ...) / evaluate_pipeline(net, knn, loader, ...)
+            batches = []
+
+            def counted(loader):
+                for b in loader:
+                    batches.append(1)
+                    yield b
+            convs = _edgeconvs(net)
+            folds = [m.folds for m in convs]
+            before = dict(edgeconv_fused.launches_by_route)
+            _sync(device)
+            t0 = time.perf_counter()
+            rep = orig(net, knn, counted(variables_or_loader), *a, **k)
+            _sync(device)
+            evals.append({"start": t0, "seconds": time.perf_counter() - t0,
+                          "batches": len(batches),
+                          "launches": {r: edgeconv_fused.launches_by_route[r] - before[r]
+                                       for r in before},
+                          "folds": [m.folds - f for m, f in zip(convs, folds)],
+                          "report": rep})
+            return rep
+        return wrapped
+
+    def stamped(step):
+        def wrapped(*a, **k):
+            stamps.append(time.perf_counter())
+            return step(*a, **k)
+        return wrapped
+
+    def timed_loop(orig):
+        def wrapped(**kw):
+            kw["step_fns"] = {stage: stamped(f) for stage, f in kw["step_fns"].items()}
+            t0 = time.perf_counter()
+            try:
+                return orig(**kw)
+            finally:
+                _sync(device)
+                loop_s.append(time.perf_counter() - t0)
+        return wrapped
+
+    tee = _Tee(sys.stdout)
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    with _wrapped(eval_owner, eval_name, count_eval), \
+            _wrapped(timed_owner, "run_training", timed_loop), redirect_stdout(tee):
+        out = main(cfg)
+    _sync(device)
+    launches = dict(edgeconv_fused.launches_by_route)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else None
+    return {"lines": tee.lines(), "out": out, "evals": evals, "loop_s": loop_s[0],
+            "stamps": stamps, "launches": launches, "peak_mem_gib": peak}
+
+
+def _logged_losses(lines):
+    """The `loss=` values of the loop's step lines."""
+    return [float(w[len("loss="):]) for ln in lines if ln.startswith("step ")
+            for w in ln.split() if w.startswith("loss=")]
+
+
+def _gate_launches(run, per_batch, what, folds_per_eval=None):
+    """Every eval of a CLI run launched the tensor-core kernel `per_batch`
+    times a forward batch and the FMA kernel never, the run's total is the
+    sum of its evals' (training steps launch neither), and, when asked,
+    every EdgeConv folded `folds_per_eval` times in each eval."""
+    total = {"tc": 0, "fma": 0}
+    for i, ev in enumerate(run["evals"]):
+        want = {"tc": per_batch * ev["batches"], "fma": 0}
+        if ev["launches"] != want:
+            raise AssertionError(f"{what}: eval {i} launched {ev['launches']} for "
+                                 f"{ev['batches']} batches, expected {want}")
+        if folds_per_eval is not None and ev["folds"] != [folds_per_eval] * len(ev["folds"]):
+            raise AssertionError(f"{what}: eval {i} folded the EdgeConvs {ev['folds']} times, "
+                                 f"expected {folds_per_eval} each")
+        total = {r: total[r] + ev["launches"][r] for r in total}
+    if run["launches"] != total:
+        raise AssertionError(f"{what}: the run launched {run['launches']}, its evals {total}")
+    return total
+
+
+def _ms_per_iter(run, iters):
+    """Host ms per training iteration: "mean", over run_training with the
+    evals' seconds taken out (the first iteration's set-up, checkpoint saves,
+    loader waits and logging stay in); "first", from the first step's entry
+    to the second's; "median_later", the median of the later intervals
+    between step entries that hold no eval (nor the checkpoint save before
+    it); "later", how many those are."""
+    st = run["stamps"]
+    later = [1e3 * (b - a) for i, (a, b) in enumerate(zip(st, st[1:]))
+             if i > 0 and not any(a <= e["start"] < b for e in run["evals"])]
+    return {"mean": 1e3 * (run["loop_s"] - sum(e["seconds"] for e in run["evals"])) / iters,
+            "first": 1e3 * (st[1] - st[0]),
+            "median_later": float(np.median(later)) if later else None, "later": len(later)}
+
+
+def _bop_errors_f64(Re, te, Rg, tg, K, pts, sym_R, sym_t):
+    """MSSD and MSPD in float64 numpy, from the two posed clouds and their
+    projections: the independent reference of gate (e)."""
+    p = pts.astype(np.float64)
+    out = {"mssd": [], "mspd": []}
+
+    def proj(cam, k):
+        z = np.maximum(cam[..., 2], 1e-6)
+        return np.stack([k[0, 0] * cam[..., 0] / z + k[0, 2],
+                         k[1, 1] * cam[..., 1] / z + k[1, 2]], -1)
+    for i in range(len(Re)):
+        re, tt, rg, tgg, k = (np.asarray(a, np.float64) for a in (Re[i], te[i], Rg[i], tg[i], K[i]))
+        pe = p @ re.T + tt
+        # GT poses composed with each symmetry: (S, V, 3)
+        pg = np.einsum("vk,sjk->svj", p, np.einsum("ij,sjk->sik", rg, sym_R.astype(np.float64))) \
+            + (sym_t.astype(np.float64) @ rg.T + tgg)[:, None]
+        out["mssd"].append(np.linalg.norm(pe[None] - pg, axis=-1).max(-1).min())
+        out["mspd"].append(np.linalg.norm(proj(pe, k)[None] - proj(pg, k), axis=-1).max(-1).min())
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def _write_pose_csv(path, rows):
+    """A BOP19 CSV of (scene_id, im_id, R, t) rows of object 1, score 1."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        f.write("scene_id,im_id,obj_id,score,R,t,time\n")
+        for sc, im, R, t in rows:
+            f.write(f"{sc},{im},1,1.0,{' '.join(repr(float(x)) for x in np.ravel(R))},"
+                    f"{' '.join(repr(float(x)) for x in t)},-1\n")
+
+
+def _perturbed(R, t, rng):
+    """R, t turned by 0-20 degrees about a random axis and moved by a
+    normal 8 mm a coordinate: errors at the scale of the recall thresholds."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    a = np.deg2rad(rng.uniform(0, 20))
+    return (np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k) @ R, t + rng.normal(0, 8.0, 3)
+
+
+def _gate_bop_errors(device, csvs, data, iters=10):
+    """Gate (e), last part: batched_bop_errors on `device` against float64
+    numpy on the pairs of each CSV in `csvs` (every estimate against the GT
+    of its image) over the object's eval-model vertices, with its own
+    symmetries (none) and with a continuous symmetry about z capped at 64;
+    per case the float64 errors' median, the largest deviation and the
+    device ms from CUDA events."""
+    from checkerpose_tpu_torch.data.bop_io import (load_models_info, model_ply_path,
+                                                   scan_bop_object)
+    from checkerpose_tpu_torch.data.ply import load_ply_vertices
+    from checkerpose_tpu_torch.eval import bop_scores as B
+    gts = {(s.scene_id, s.im_id): s for s in scan_bop_object(data, "synth", "test", 1, -1.0)}
+    verts = load_ply_vertices(model_ply_path(data, "synth", 1, eval_models=True)).astype(np.float32)
+    info = load_models_info(data, "synth", eval_models=True)[1]
+    res = {}
+    for csv_name, csv_path in csvs.items():
+        rows = [r for r in B.load_bop_results_csv(csv_path) if (r["scene_id"], r["im_id"]) in gts]
+        g = [gts[(r["scene_id"], r["im_id"])] for r in rows]
+        arrays = [np.stack(a).astype(np.float32) for a in
+                  ([r["R"] for r in rows], [r["t"] for r in rows], [s.R for s in g],
+                   [s.t for s in g], [s.cam_K for s in g])]
+        for name, minfo in (("own", info),
+                            ("continuous_z", dict(info, symmetries_continuous=[
+                                {"axis": [0, 0, 1], "offset": [0, 0, 0]}]))):
+            sym_R, sym_t = B.sym_arrays(minfo)
+            on = [torch.as_tensor(a, device=device) for a in (*arrays, verts, sym_R, sym_t)]
+            got = {k: v.double().cpu().numpy() for k, v in B.batched_bop_errors(*on).items()}
+            ref = _bop_errors_f64(*arrays, verts, sym_R, sym_t)
+            err = {k: np.abs(got[k] - ref[k]) for k in got}
+            bad = {k: int((e > BOP_ERR_ATOL + BOP_ERR_RTOL * np.abs(ref[k])).sum())
+                   for k, e in err.items()}
+            case = f"{csv_name}/{name}"
+            res[case] = {"pairs": len(rows), "verts": len(verts), "syms": len(sym_R),
+                         "median": {k: float(np.median(v)) for k, v in ref.items()},
+                         "diameter": float(info["diameter"]),
+                         "max_abs_err": {k: float(e.max()) for k, e in err.items()},
+                         "max_rel_err": {k: float((e / np.maximum(np.abs(ref[k]), 1e-30)).max())
+                                         for k, e in err.items()},
+                         "device_ms": time_ms(lambda: B.batched_bop_errors(*on), device, iters)}
+            if any(bad.values()):
+                raise AssertionError(f"gate (e): batched_bop_errors off float64 on {bad} of "
+                                     f"{len(rows)} pairs ({case}): {res[case]}")
+    return res
+
+
+def _score_csv(device, eval_bop, csv_path, data):
+    """eval_bop.main on a CSV, with the MSSD + MSPD call timed on the host
+    clock (the device synchronised) and VSD timed and its rendered depth
+    maps counted from outside the CLI."""
+    from checkerpose_tpu_torch.eval import bop_scores as B
+    t = {"errors_s": 0.0, "vsd_s": 0.0, "vsd_renders": 0}
+
+    def timed(key, sync=False):
+        def wrap(orig):
+            def wrapped(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    if sync:
+                        _sync(device)
+                    t[key] += time.perf_counter() - t0
+            return wrapped
+        return wrap
+
+    def sized(orig):
+        def wrapped(Re, te, Rg, tg, K, pts, sym_R, sym_t, **k):
+            t.update(pairs=len(Re), verts=len(pts), syms=len(sym_R))
+            return orig(Re, te, Rg, tg, K, pts, sym_R, sym_t, **k)
+        return wrapped
+
+    def counted(orig):
+        def wrapped(*a, **k):
+            t["vsd_renders"] += 1
+            return orig(*a, **k)
+        return wrapped
+
+    with _wrapped(B, "batched_bop_errors", lambda f: sized(timed("errors_s", sync=True)(f))), \
+            _wrapped(eval_bop, "_try_vsd", timed("vsd_s")), \
+            _wrapped(B, "render_depth", counted):
+        rep = eval_bop.main(str(csv_path), data, "synth", device=device.type)
+    return {"overall": rep["overall"], "per_object": rep["per_object"][1], **t}
+
+
+def _gate_kernel_inputs(device, net, batch, knn):
+    """Gate (d): the EdgeConv inputs of one eval forward batch of the trained
+    net, at the init net's width (C=64) and a refine stage's (C=256), through
+    the kernel and through the plain version (bar 1e-3 + 2^-8 |ref|)."""
+    from checkerpose_tpu_torch.models.posenet import knn_tensor
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, edgeconv_fused_plain
+    from checkerpose_tpu_torch.train import steps
+    init = net.init_net.graph_0
+    refine = next(m for m in _edgeconvs(net) if m not in set(_edgeconvs(net.init_net)))
+    convs = {init.conv.weight.shape[0]: init, refine.conv.weight.shape[0]: refine}
+    seen = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args, c=c: seen.setdefault(c, args))
+             for c, m in convs.items()]
+    k = knn_tensor(knn, len(knn), device)
+    try:
+        net.eval()
+        steps.make_pose_forward(net, k, net.num_refine_steps)(
+            {key: torch.as_tensor(batch[key], device=device) for key in ("image", "p3d_normed")})
+    finally:
+        for h in hooks:
+            h.remove()
+    res = {}
+    for c, mod in convs.items():
+        x, kn = seen[c]
+        x = x.to(mod.dtype).contiguous()
+        w1, w2m1, scale, bias, packed = mod.fused_args()
+        out = edgeconv_fused(x, kn, w1, w2m1, scale, bias, mod.leaky_slope, packed=packed)
+        ref = edgeconv_fused_plain(x.float(), kn, w1.float(), w2m1.float(), scale, bias,
+                                   mod.leaky_slope)
+        err = (out.float() - ref).abs()
+        res[c] = {"shape": list(x.shape), "max_abs_err": float(err.max())}
+        if not bool((err <= 1e-3 + 2 ** -8 * ref.abs()).all()):
+            raise AssertionError(f"gate (d): the kernel on the trained net's C={c} EdgeConv "
+                                 f"inputs {tuple(x.shape)} disagrees with the plain version: "
+                                 f"max |err| {res[c]['max_abs_err']}")
+    return res
+
+
+def phase_workflow(device, root=None, n_test=64, n_train=128, n_scenes=2, batch=64,
+                   n_vertices=2048, iters=20, test_freq=10, log_freq=5, resume_to=30,
+                   graft_iters=2, cfg_overrides=None, pretrain_overrides=None, seed=0):
+    """A user's single-object workflow through the CLIs' `main` functions on
+    a fixture the port generates: pretrain, graft, train (and resume), test,
+    merge, score; gates (a)-(e) raise."""
+    import shutil
+    from checkerpose_tpu_torch.cli import common, eval_bop, merge_csv, pretrain as cli_pre
+    from checkerpose_tpu_torch.cli import test as cli_test, train as cli_train
+    from checkerpose_tpu_torch.data.bop_io import scan_bop_object
+    from checkerpose_tpu_torch.data.synthetic import make_synthetic_bop
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+    from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
+
+    on_card = device.type == "cuda"
+    root = Path(root) if root is not None else ROOT / "build" / "workflow_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    data = str(root / "data")
+    t0 = time.perf_counter()
+    make_synthetic_bop(data, n_objects=1, n_scenes=n_scenes,
+                       folders={"test": n_test, "train_real": n_train},
+                       n_vertices=n_vertices, raw_cache=True, write_png=False, seed=seed)
+    res = {"fixture": {"test_images": n_scenes * n_test, "train_images": n_scenes * n_train,
+                       "vertices": n_vertices, "depth_pngs": len(list(
+                           (root / "data" / "synth" / "test").glob("*/depth/*.png"))),
+                       "seconds": time.perf_counter() - t0 if on_card else None}}
+    if res["fixture"]["depth_pngs"] != n_scenes * n_test:
+        raise AssertionError(f"fixture: {res['fixture']['depth_pngs']} depth PNGs")
+    say(f"[workflow] fixture: {n_scenes} x {n_test} test images with depth PNGs + "
+        f"{n_scenes} x {n_train} train_real, {n_vertices} vertices, frame cache only, "
+        f"{res['fixture']['seconds']} s on the host")
+    common_over = dict(bop_path=data, tensorboard_path=str(root / "tb"), log_freq=log_freq,
+                       device=device.type)
+
+    # --- (a) pretrain ------------------------------------------------------------------
+    pcfg = common.resolve_cfg(str(ROOT / PRETRAIN_CFG), "obj01", dict(
+        pretrain_overrides or {}, **common_over, check_point_path=str(root / "ckpt_pre"),
+        total_iteration=iters, test_freq=test_freq))
+    pcfg.pop("backbone_pretrain_checkpoint", None)   # overrides cannot unset a key
+    run = _run_cli(device, cli_pre.main, pcfg, cli_pre, "evaluate_init", cli_pre)
+    losses = _logged_losses(run["lines"])
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"gate (a): logged pretrain losses {losses}")
+    bad = [ev["report"].keys() for ev in run["evals"] if set(ev["report"]) != set(INIT_EVAL_KEYS)]
+    if bad or not run["evals"]:
+        raise AssertionError(f"gate (a): evaluate_init reports with keys {bad}")
+    pre_dir = Path(pcfg["check_point_path"])
+    kept = sorted(int(d.name) for d in pre_dir.iterdir() if (d / "state.pt").is_file())
+    if pre_dir != root / "ckpt_pre" / Path(PRETRAIN_CFG).stem / "obj01" or kept[-1] != iters:
+        raise AssertionError(f"gate (a): checkpoints {kept} under {pre_dir}")
+    pre_launches = _gate_launches(run, INIT_EDGECONVS if on_card else 0, "gate (a)")
+    res["pretrain"] = {"iterations": iters, "logged_losses": losses, "checkpoints": kept,
+                       "evals": len(run["evals"]),
+                       "eval_batches": [e["batches"] for e in run["evals"]],
+                       "eval_s": [e["seconds"] for e in run["evals"]] if on_card else None,
+                       "ms_per_iter": _ms_per_iter(run, iters) if on_card else None,
+                       "peak_mem_gib": run["peak_mem_gib"], "launches": pre_launches,
+                       "test_acc": [e["report"]["test_acc"] for e in run["evals"]]}
+    say(f"[workflow] (a) cli.pretrain.main, {iters} iterations at batch "
+        f"{pcfg['batch_size']}, eval every {test_freq}: host ms an iteration without the evals "
+        f"{res['pretrain']['ms_per_iter']}; evals {res['pretrain']['eval_s']} s over "
+        f"{res['pretrain']['eval_batches']} batches; EdgeConv launches {pre_launches} = "
+        f"{INIT_EDGECONVS} x {sum(res['pretrain']['eval_batches'])} eval batches; losses "
+        f"finite ({losses[0]:.4f} -> {losses[-1]:.4f}); checkpoints {kept} under {pre_dir}; "
+        f"peak {run['peak_mem_gib']} GiB")
+
+    # --- (b) graft ---------------------------------------------------------------------
+    grafted = {}
+
+    def capture_graft(orig):
+        def wrapped(cfg, state):
+            state = orig(cfg, state)
+            grafted.update({k: v.detach().cpu().clone() for k, v
+                            in state.module.state_dict().items() if k.startswith("backbone.")})
+            return state
+        return wrapped
+
+    gcfg = dict(pcfg, check_point_path=str(root / "ckpt_graft"), total_iteration=graft_iters,
+                backbone_pretrain_checkpoint=str(pre_dir))
+    with _wrapped(common, "maybe_graft_pretrained_backbone", capture_graft):
+        grun = _run_cli(device, cli_pre.main, gcfg, cli_pre, "evaluate_init", cli_pre)
+    source = CheckpointManager(str(pre_dir)).restore_raw()["model"]
+    src_bb = {k: v for k, v in source.items() if k.startswith("backbone.")}
+    said = [ln for ln in grun["lines"] if ln.startswith("grafted NOCS-pretrained backbone")]
+    differ = [k for k, v in src_bb.items() if not torch.equal(grafted.get(k, torch.empty(0)), v)]
+    if not said or not src_bb or differ or set(grafted) != set(src_bb):
+        raise AssertionError(f"gate (b): graft line {said}, {len(differ)} of {len(src_bb)} "
+                             f"backbone entries differ from the source")
+    res["graft"] = {"line": said[0], "entries": len(src_bb),
+                    "launches": _gate_launches(grun, INIT_EDGECONVS if on_card else 0,
+                                               "gate (b)")}
+    say(f"[workflow] (b) graft: '{said[0]}'; all {len(src_bb)} backbone entries equal the "
+        f"source checkpoint's bit for bit at step 0; {graft_iters} iterations after it, "
+        f"EdgeConv launches {res['graft']['launches']}")
+
+    # --- (c) train and resume ----------------------------------------------------------
+    tcfg = common.resolve_cfg(str(ROOT / EVAL_CFG), "obj01", dict(
+        cfg_overrides or {}, **common_over, check_point_path=str(root / "ckpt_train"),
+        Detection_reaults=f"{data}/detection_results/synth/synth_detections.json",
+        init_pretrained_root=str(pre_dir.parent), total_iteration=iters, test_freq=test_freq))
+    at_step0 = {}
+
+    def capture_init(orig):
+        def wrapped(net, *a, **k):
+            state = orig(net, *a, **k)
+            if not at_step0:
+                at_step0.update({k_: v.detach().cpu().clone()
+                                 for k_, v in net.init_net.state_dict().items()})
+            return state
+        return wrapped
+
+    with _wrapped(cli_train, "create_pose_state", capture_init):
+        trun = _run_cli(device, cli_train.main, tcfg, cli_train, "evaluate_pipeline", cli_train)
+    init_src = CheckpointManager(str(pre_dir)).restore_raw()["model"]
+    loaded = [k for k, v in init_src.items() if k in at_step0 and at_step0[k].shape == v.shape]
+    differ = [k for k in loaded if not torch.equal(at_step0[k], init_src[k])]
+    said = [ln for ln in trun["lines"] if ln.startswith("loaded pretrained init net")]
+    if not said or f"(step {iters})" not in said[0] or not loaded or differ:
+        raise AssertionError(f"gate (c): init line {said}; {len(differ)} of {len(loaded)} "
+                             f"grafted init_net entries differ from the pretrain checkpoint")
+    losses = _logged_losses(trun["lines"])
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"gate (c): logged train losses {losses}")
+    n_conv = len(_edgeconvs(trun["out"].module))
+    train_launches = _gate_launches(trun, EDGECONV_PER_FORWARD if on_card else 0, "gate (c)",
+                                    folds_per_eval=1)
+    gates = [1.0 - float(np.mean(e["report"]["bit_err"])) for e in trun["evals"]]
+    eval_steps = sorted({s for s in range(test_freq, iters + 1, test_freq)} | {iters})
+    ckpt = CheckpointManager(tcfg["check_point_path"])
+    best = sorted(d.name for d in Path(ckpt.best_dir).iterdir())
+    want_best = str(eval_steps[int(np.argmax(gates))])
+    if len(gates) != len(eval_steps) or best != [want_best] \
+            or ckpt.best_floor(GATE_METRIC) != max(gates):
+        raise AssertionError(f"gate (c): gate scores {gates} at steps {eval_steps}, best "
+                             f"checkpoint {best} (expected {want_best}), recorded "
+                             f"{ckpt.best_floor(GATE_METRIC)}")
+    rrun = _run_cli(device, cli_train.main, dict(tcfg, load_checkpoint=True,
+                                                 total_iteration=resume_to),
+                    cli_train, "evaluate_pipeline", cli_train)
+    if f"resumed from step {iters}" not in rrun["lines"] or rrun["out"].step != resume_to:
+        raise AssertionError(f"gate (c): the resumed run ended at step {rrun['out'].step}")
+    resume_launches = _gate_launches(rrun, EDGECONV_PER_FORWARD if on_card else 0,
+                                     "gate (c), resumed", folds_per_eval=1)
+    r_losses = _logged_losses(rrun["lines"])
+    if not np.isfinite(r_losses).all():
+        raise AssertionError(f"gate (c): logged losses of the resumed run {r_losses}")
+    res["train"] = {"iterations": iters, "resumed_to": resume_to, "init_entries_grafted":
+                    len(loaded), "logged_losses": losses + r_losses,
+                    "evals": len(trun["evals"]) + len(rrun["evals"]),
+                    "eval_batches": [e["batches"] for e in trun["evals"] + rrun["evals"]],
+                    "eval_s": ([e["seconds"] for e in trun["evals"] + rrun["evals"]]
+                               if on_card else None),
+                    "ms_per_iter": _ms_per_iter(trun, iters) if on_card else None,
+                    "ms_per_iter_resumed": (_ms_per_iter(rrun, resume_to - iters)
+                                            if on_card else None),
+                    "peak_mem_gib": trun["peak_mem_gib"], "gate_scores": gates,
+                    "best": best, "launches": train_launches,
+                    "launches_resumed": resume_launches, "edgeconvs": n_conv}
+    say(f"[workflow] (c) cli.train.main, {iters} iterations at batch {tcfg['batch_size']} from "
+        f"'{said[0]}' ({len(loaded)} init_net entries equal the checkpoint's at step 0), eval "
+        f"every {test_freq}: host ms an iteration without the evals {res['train']['ms_per_iter']}; "
+        f"evals {res['train']['eval_s']} s; EdgeConv launches {train_launches} = "
+        f"{EDGECONV_PER_FORWARD} x {sum(e['batches'] for e in trun['evals'])} eval batches, "
+        f"each of the {n_conv} EdgeConvs folded once per eval; losses finite; best checkpoint "
+        f"{best} on gate scores {gates}; peak {trun['peak_mem_gib']} GiB; resumed from step "
+        f"{iters} to {resume_to}: host ms an iteration {res['train']['ms_per_iter_resumed']}, "
+        f"launches {resume_launches}")
+
+    # --- test, merge --------------------------------------------------------------------
+    out_dir = root / "out"
+    qcfg = dict(tcfg, ckpt_dir=tcfg["check_point_path"], eval_output_path=str(out_dir),
+                test_batch_size=batch)
+    reset_launch_counts()
+    report = cli_test.main(qcfg)
+    _sync(device)
+    test_launches = dict(edgeconv_fused.launches_by_route)
+    n_images = n_scenes * n_test
+    forwards = -(-n_images // batch)
+    want = {"tc": EDGECONV_PER_FORWARD * forwards if on_card else 0, "fma": 0}
+    if test_launches != want or report["n_images"] != n_images:
+        raise AssertionError(f"test CLI: launches {test_launches} (expected {want}), "
+                             f"{report['n_images']} images")
+    merged = merge_csv.main(["--input_dir", str(out_dir), "--output_fn", "merged.csv"])
+    with open(merged) as f:
+        merged_rows = len(f.readlines()) - 1
+
+    # --- (e) score ----------------------------------------------------------------------
+    samples = scan_bop_object(data, "synth", "test", 1, 0.1)
+    gt_csv, pert_csv = root / "gt" / "gt.csv", root / "gt" / "perturbed.csv"
+    _write_pose_csv(gt_csv, [(s.scene_id, s.im_id, s.R, s.t) for s in samples])
+    rng = np.random.default_rng(seed + 7)
+    _write_pose_csv(pert_csv, [(s.scene_id, s.im_id, *_perturbed(s.R, s.t, rng))
+                               for s in samples])
+    scores = {name: _score_csv(device, eval_bop, path, data)
+              for name, path in (("gt", gt_csv), ("test_cli", merged))}
+    gt, est = scores["gt"]["per_object"], scores["test_cli"]["per_object"]
+    if gt["ar_mssd"] != 1.0 or gt["ar_mspd"] != 1.0 or not gt.get("ar_vsd", 0.0) > 0.95:
+        raise AssertionError(f"gate (e): GT poses score {gt}")
+    ars = [est[k] for k in ("ar_mssd", "ar_mspd", "ar_vsd", "ar")]
+    if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in ars) \
+            or est["n_estimates"] != merged_rows:
+        raise AssertionError(f"gate (e): the test CLI's CSV scores {est} ({merged_rows} rows)")
+    errs = _gate_bop_errors(device, {"perturbed": pert_csv, "test_cli": merged}, data)
+    for sc in scores.values():
+        sc["vsd_ms_per_render"] = 1e3 * sc["vsd_s"] / max(sc["vsd_renders"], 1)
+        if not on_card:
+            sc["errors_s"] = sc["vsd_s"] = sc["vsd_ms_per_render"] = None
+    if not on_card:
+        for e in errs.values():
+            e["device_ms"] = None
+    res["test"] = {"launches": test_launches, "images": n_images, "csv_rows": merged_rows}
+    res["scores"] = scores
+    res["bop_errors_vs_f64"] = errs
+    say(f"[workflow] test CLI on the trained checkpoint, {n_images} images at batch {batch}: "
+        f"EdgeConv launches {test_launches}; merge_csv -> {merged_rows} rows")
+    for name, sc in scores.items():
+        say(f"[workflow] (e) eval_bop on the {name} CSV: {sc['per_object']}; MSSD + MSPD of "
+            f"{sc['pairs']} pairs x {sc['verts']} vertices x {sc['syms']} symmetries "
+            f"{sc['errors_s']} s on the host clock (device synchronised); VSD {sc['vsd_s']} s "
+            f"for {sc['vsd_renders']} rendered frames, {sc['vsd_ms_per_render']} ms a frame "
+            f"on the host")
+    for name, e in errs.items():
+        say(f"[workflow] (e) batched_bop_errors on {device.type} vs float64, {e['pairs']} "
+            f"pairs x {e['verts']} vertices x {e['syms']} symmetries ({name}; float64 "
+            f"medians {e['median']}, diameter {e['diameter']} mm): max abs "
+            f"{e['max_abs_err']}, max rel {e['max_rel_err']} (bar {BOP_ERR_ATOL:g} + "
+            f"{BOP_ERR_RTOL:g} relative); {e['device_ms']} ms on the device")
+
+    # --- (d) the kernel on the trained net's inputs, after the counted runs ------------------
+    _, knn, first = _first_test_batch(qcfg, batch)
+    res["kernel_inputs"] = _gate_kernel_inputs(device, rrun["out"].module, first, knn)
+    say(f"[workflow] (d) tensor-core kernel vs plain version on one eval batch's EdgeConv "
+        f"inputs of the trained net: {res['kernel_inputs']} (bar 1e-3 + 2^-8 |ref|)")
+    res["launches_by_path"] = {"workflow_pretrain": pre_launches,
+                               "workflow_graft": res["graft"]["launches"],
+                               "workflow_train": train_launches,
+                               "workflow_train_resumed": resume_launches,
+                               "workflow_test": test_launches}
+    return res
+
+
 KERNELS = {
     "tc": dict(name="edgeconv_fused_tc", source="checkerpose_tpu_torch/csrc/edgeconv_tc.cu",
                dtype="bfloat16", phase="serving",
                path="bf16 serving forward (phase serving); also the eval forward of the "
-                    "trained weights (phase train) and every forward batch of the test "
-                    "CLI (phase eval)"),
+                    "trained weights (phase train), every forward batch of the test "
+                    "CLI (phase eval) and every eval batch of the pretrain and train "
+                    "CLIs (phase workflow)"),
     "fma": dict(name="edgeconv_fused_fma", source="checkerpose_tpu_torch/csrc/edgeconv.cu",
                 dtype="float32", phase="reference",
                 path="f32 forward (phase reference); the bf16 serving path no longer "
@@ -1412,13 +1985,14 @@ def _per_forward(rows, route, dtype):
 
 
 def kernel_summary(rows, launches_by_route, train_eval_launches=None, eval_launches=None,
-                   eval_rows=None):
+                   eval_rows=None, paths=None):
     """One entry per kernel for the JSON line. `launches` is the count of
     the path that runs the kernel (the serving phase for the tensor-core
     kernel, the reference phase's f32 forward for the FMA kernel);
     `launches_by_path` adds the count of the eval forward that ends the train
-    phase and, when given, of the eval phase's hard run of the test CLI, each
-    path counted from 0. Times are per forward of that path: 2 launches at
+    phase and, when given, of the eval phase's hard run of the test CLI and
+    of each path in `paths` ({name: launches by route}, the workflow phase's
+    CLI runs), each path counted from 0. Times are per forward of that path: 2 launches at
     C=C'=64 + 9 at C=C'=256 in the path's dtype; `eval_rows` (the kernels
     held against the plain version at the eval batch) add the same figures
     at that batch under `at_eval_batch`."""
@@ -1433,7 +2007,9 @@ def kernel_summary(rows, launches_by_route, train_eval_launches=None, eval_launc
             "launches_by_path": {k["phase"]: launches_by_route[route],
                                  "train_eval": (train_eval_launches or {}).get(route),
                                  **({"eval": eval_launches.get(route)}
-                                    if eval_launches is not None else {})},
+                                    if eval_launches is not None else {}),
+                                 **{name: by_route.get(route)
+                                    for name, by_route in (paths or {}).items()}},
             "max_abs_err": max_err, **times, "bound_by": bound_by,
             "library_ms": None,
             "per": f"one forward: 2 launches at C=C'=64 + 9 at C=C'=256, {k['dtype']}, "
@@ -1483,6 +2059,7 @@ def main(argv=None) -> int:
     fold = phase_fold_cost(device)
     train = phase_train(device, seed=args.seed, profile_dir=args.profile)
     evaluation = phase_eval(device, seed=args.seed)
+    workflow = phase_workflow(device, seed=args.seed)
 
     launches = {"tc": serving["edgeconv_launches_by_route"]["tc"],
                 "fma": reference["f32"]["edgeconv_launches_by_route"]["fma"]}
@@ -1490,9 +2067,11 @@ def main(argv=None) -> int:
     print(json.dumps({"train": train, "card": card}))
     eval_rows = evaluation.pop("kernel_rows")
     print(json.dumps({"eval": evaluation, "card": card}))
+    print(json.dumps({"workflow": workflow, "card": card}))
     print(json.dumps({"kernels": kernel_summary(
         rows, launches, train["eval_after_training"]["edgeconv_launches_by_route"],
-        evaluation["hard"]["edgeconv_launches_by_route"], eval_rows)}))
+        evaluation["hard"]["edgeconv_launches_by_route"], eval_rows,
+        workflow["launches_by_path"])}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,15 @@
-"""Shared CLI plumbing, single-object part: config-driven dataset and
-loader construction and the pretrained-backbone graft (counterpart of
-checkerpose_tpu/cli/common.py, same cfg keys and path conventions:
-checkpoint and log dirs are <base>/<cfg_name>/<obj_name>).
+"""Shared CLI plumbing: config-driven dataset and loader construction and
+the pretrained-backbone graft (counterpart of checkerpose_tpu/cli/common.py,
+same cfg keys and path conventions: checkpoint and log dirs are
+<base>/<cfg_name>/<obj_name>).
 
-Not ported yet (ROADMAP queue 1, item 4): the multi-object LM part
-(`resolve_cfg_lm`, `load_keypoints_lm`, `build_train_loaders_lm`).
+The multi-object part (the LM 13-object shared estimator and its synthetic
+stand-in) keeps one table row per object, ordered by sorted obj_id:
+`resolve_cfg_lm` (dirs under the shared "lm13" leaf), `load_keypoints_lm`
+(the stacked keypoint and graph tables), `build_train_loaders_lm` (real
+images, optionally mixed with lm_imgn renders or a second folder, with the
+background swap) and the stacked branch of `attach_p3d`. The test loaders
+take a {obj_id: (N, 3)} table as well as one object's keypoints.
 """
 from __future__ import annotations
 
@@ -17,11 +22,13 @@ from checkerpose_tpu_torch.config import parse_cfg
 from checkerpose_tpu_torch.data.bop_io import load_models_info, scan_bop_object, scan_bop_targets
 from checkerpose_tpu_torch.data.dataset import (CropDataset, Loader, MixedLoader,
                                                 mixed_batch_sizes)
-from checkerpose_tpu_torch.data.dataset_info import get_obj_info
+from checkerpose_tpu_torch.data.dataset_info import LM13_OBJECTS, get_obj_info
 from checkerpose_tpu_torch.data.detections import attach_detections, load_detections
 from checkerpose_tpu_torch.data.fps import load_keypoints_normed
 from checkerpose_tpu_torch.data.framestore import FrameCache
+from checkerpose_tpu_torch.data.lm_imgn import scan_lm_imgn
 from checkerpose_tpu_torch.models.convert import graft_backbone
+from checkerpose_tpu_torch.ops.geometry import pc_normalize
 from checkerpose_tpu_torch.ops.knn import knn_index
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.state import TrainState
@@ -149,9 +156,13 @@ def build_val_slice_loader_factory(cfg: Dict, xyz: np.ndarray, *,
 
 
 def attach_p3d(batch: Dict, p3dn: np.ndarray) -> Dict:
-    """Attach the object's normalized keypoints (N, 3) to every sample."""
-    B = batch["image"].shape[0]
-    batch["p3d_normed"] = np.broadcast_to(p3dn[None], (B,) + p3dn.shape).copy()
+    """Attach per-sample normalized keypoints: a stacked (O, N, 3) table is
+    gathered by `obj_idx`, one object's (N, 3) is broadcast."""
+    if p3dn.ndim == 3:
+        batch["p3d_normed"] = p3dn[np.asarray(batch["obj_idx"])]
+    else:
+        B = batch["image"].shape[0]
+        batch["p3d_normed"] = np.broadcast_to(p3dn[None], (B,) + p3dn.shape).copy()
     return batch
 
 
@@ -191,6 +202,117 @@ def checkpoint_dir_arg(ckpt_dir, ckpt_file):
 def object_diameter(cfg: Dict) -> float:
     info = load_models_info(cfg["bop_path"], cfg["dataset_name"], eval_models=False)
     return float(info[cfg["obj_id"]]["diameter"])
+
+
+# ---------------------------------------------------------------------------
+# multi-object (LM 13-object shared estimator)
+# ---------------------------------------------------------------------------
+
+def resolve_cfg_lm(cfg_path: str, overrides: Optional[Dict] = None) -> Dict:
+    """LM config: one shared estimator over several objects (default the 13
+    Linemod ones; cfg `obj_names` as a list or a comma- or space-separated
+    string). Adds obj_names, obj_ids, symmetric_names; checkpoint and log
+    dirs are <base>/<cfg_name>/lm13; `datasets_root` stands in for a
+    missing bop_path, as in the reference's LM configs."""
+    cfg = parse_cfg(cfg_path)
+    cfg["config_file_name"] = os.path.splitext(os.path.basename(cfg_path))[0]
+    if overrides:
+        cfg.update({k: v for k, v in overrides.items() if v is not None})
+    cfg.setdefault("dataset_name", "lm")
+    if "bop_path" not in cfg and "datasets_root" in cfg:
+        cfg["bop_path"] = cfg["datasets_root"]
+    names, syms = get_obj_info(cfg["dataset_name"])
+    obj_names = cfg.get("obj_names")
+    if isinstance(obj_names, str):
+        obj_names = [n for n in obj_names.replace(",", " ").split() if n]
+    cfg["obj_names"] = list(obj_names or LM13_OBJECTS)
+    cfg["obj_ids"] = [names[n] for n in cfg["obj_names"]]
+    cfg["symmetric_names"] = set(syms)
+    for key, base in (("check_point_path", "experiments/checkpoints"),
+                      ("tensorboard_path", "experiments/tensorboard_logs/runs")):
+        root = cfg.get(key, base)
+        cfg[key] = os.path.join(root, cfg["config_file_name"], "lm13")
+    return cfg
+
+
+def load_keypoints_lm(cfg: Dict):
+    """({obj_id: (N, 3)} mm, p3d_normed (O, N, 3), knn (O, N, K) int32),
+    rows ordered by sorted obj_id, the order CropDataset gives obj_idx."""
+    num_p3d = 2 ** int(cfg["num_p3d_log2"])
+    graph_k = int(cfg.get("network_graph_k", cfg.get("init_network_graph_k", 20)))
+    table, normed_rows, knn_rows = {}, [], []
+    for obj_id in sorted(cfg["obj_ids"]):
+        xyz = load_keypoints_normed(cfg["bop_path"], cfg["dataset_name"], obj_id, num_p3d,
+                                    cfg.get("fps_version", "fps_202212"))[0]
+        table[obj_id] = xyz
+        normed = pc_normalize(xyz.astype(np.float64)).astype(np.float32)
+        normed_rows.append(normed)
+        knn_rows.append(knn_index(normed, min(graph_k, num_p3d)))
+    return table, np.stack(normed_rows), np.stack(knn_rows)
+
+
+def _background_paths(cfg: Dict):
+    """The sorted .jpg / .jpeg / .png files of cfg voc_background_root (else
+    background_root), or None when it names no directory."""
+    bg_root = cfg.get("voc_background_root") or cfg.get("background_root")
+    if not bg_root or not os.path.isdir(str(bg_root)):
+        return None
+    return sorted(os.path.join(bg_root, f) for f in os.listdir(bg_root)
+                  if f.lower().endswith((".jpg", ".png", ".jpeg")))
+
+
+def build_train_loaders_lm(cfg: Dict, p3d_table: Dict, seed: int = 0):
+    """The multi-object train loader over every object's
+    training_data_folder, mixed at second_dataset_ratio with
+    training_data_folder_2 (`lm_imgn`: the lm_imgn renders under
+    lm_imgn_root, imgn_n_per_obj an object) when one is named, with the
+    background swap of bg_paths / change_bg_prob; and a factory of one
+    object's validation loader, `factory(obj_id)`."""
+    common_kw = _crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
+                                          2 ** int(cfg.get("network_res_log2", 6)))))
+    vt = float(cfg.get("train_obj_visible_theshold", 0.1))
+    batch = int(cfg["batch_size"])
+    train_kw = dict(common_kw, is_train=True, bg_paths=_background_paths(cfg),
+                    change_bg_prob=float(cfg.get("change_bg_prob", 0.0)))
+
+    def gather(folder):
+        return [s for obj_id in sorted(cfg["obj_ids"])
+                for s in scan_bop_object(cfg["bop_path"], cfg["dataset_name"], folder,
+                                         obj_id, vt)]
+
+    def gather_imgn():
+        id_to_name = {oid: n for n, oid in zip(cfg["obj_names"], cfg["obj_ids"])}
+        n_per = int(cfg.get("imgn_n_per_obj", 1000))
+        return [s for obj_id in sorted(cfg["obj_ids"])
+                for s in scan_lm_imgn(cfg["lm_imgn_root"], id_to_name[obj_id], obj_id,
+                                      n_per_obj=n_per)]
+
+    s1 = gather(cfg["training_data_folder"])
+    folder2 = cfg.get("training_data_folder_2", "none")
+    if folder2 == "lm_imgn" and cfg.get("lm_imgn_root"):
+        s2 = gather_imgn()
+    elif folder2 and folder2 != "none":
+        s2 = gather(folder2)
+    else:
+        s2 = None
+    if s2:
+        b1, b2 = mixed_batch_sizes(batch, float(cfg.get("second_dataset_ratio", 0.75)))
+        l1 = Loader(CropDataset(s1, p3d_table, seed=seed, **train_kw), b1, shuffle=True,
+                    infinite=True, seed=seed)
+        l2 = Loader(CropDataset(s2, p3d_table, seed=seed + 1, **train_kw), b2, shuffle=True,
+                    infinite=True, seed=seed + 1)
+        train_loader = MixedLoader(l1, l2)
+    else:
+        train_loader = Loader(CropDataset(s1, p3d_table, seed=seed, **train_kw), batch,
+                              shuffle=True, infinite=True, seed=seed)
+
+    def val_loader_factory(obj_id):
+        sv = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
+                             cfg.get("val_folder", "test"), obj_id, 0.1)
+        return Loader(CropDataset(sv, p3d_table, is_train=False, **common_kw), batch,
+                      shuffle=False, drop_last=False, infinite=False)
+
+    return train_loader, val_loader_factory
 
 
 def maybe_graft_pretrained_backbone(cfg: Dict, state: TrainState) -> TrainState:

@@ -99,24 +99,29 @@ def stage_starts(cfg, num_refine_steps: int):
     return starts
 
 
-def step_options(cfg, step: int, num_refine_steps: int):
+def step_options(cfg, step: int, num_refine_steps: int, full_bits: bool = False,
+                 res_log2: int = 6):
     """{stage: make_train_step options} fixed at `step` (the resume step):
     teacher forcing annealed there, the prefix-correct fine-bit mask on from
-    prefix_correct_start_step, the fine-bit loss boost per stage."""
-    tf_base = float(cfg.get("refine_teacher_force_prob", 0.0))
+    prefix_correct_start_step, the fine-bit loss boost per stage. With
+    full_bits (the woProg ablation, which emits all res_log2 bits at every
+    stage and has no refine gathers) teacher forcing, the prefix mask and the
+    aux refine loss are off and the boost spans res_log2 bits."""
+    tf_base = 0.0 if full_bits else float(cfg.get("refine_teacher_force_prob", 0.0))
     tf_prob = steps.teacher_force_prob_at(
         step, tf_base, int(cfg.get("refine_teacher_force_anneal_start", 0)),
         int(cfg.get("refine_teacher_force_anneal_end", 0)))
     if tf_prob != tf_base:
         print(f"teacher forcing annealed {tf_base} -> {tf_prob:.3f} "
               f"(resume step {step})", flush=True)
-    prefix_mask = (bool(cfg.get("prefix_correct_finebit_mask", False))
+    prefix_mask = (not full_bits
+                   and bool(cfg.get("prefix_correct_finebit_mask", False))
                    and step >= int(cfg.get("prefix_correct_start_step", 0)))
     if prefix_mask:
         print(f"prefix-correct fine-bit masking ON (resume step {step})", flush=True)
     out = {}
     for stage in range(1, num_refine_steps + 1):
-        bw = steps.finebit_bit_weights(cfg, step, 3 + stage)
+        bw = steps.finebit_bit_weights(cfg, step, res_log2 if full_bits else 3 + stage)
         if bw is not None and stage == num_refine_steps:
             print(f"fine-bit loss boost active: weights {bw}", flush=True)
         out[stage] = dict(
@@ -129,8 +134,9 @@ def step_options(cfg, step: int, num_refine_steps: int):
             use_motion_blur=bool(cfg.get("use_motion_blur", True)),
             color_aug_prob=float(cfg.get("color_aug_prob", 0.8)),
             aux_heatmap_weight=float(cfg.get("aux_heatmap_loss_weight", 0.0)),
-            aux_refine_weight=float(cfg.get("aux_refine_heatmap_weight", 0.0)),
-            teacher_force_prob=tf_prob,
+            aux_refine_weight=(0.0 if full_bits
+                               else float(cfg.get("aux_refine_heatmap_weight", 0.0))),
+            full_bits=full_bits, teacher_force_prob=tf_prob,
             coord_reg_weight=float(cfg.get("coord_reg_loss_weight", 0.0)))
     return out
 

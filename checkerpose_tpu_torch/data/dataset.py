@@ -3,42 +3,64 @@ checkerpose_tpu/data/dataset.py: `CropDataset`'s python item path, `Loader`,
 `MixedLoader`, `mixed_batch_sizes`).
 
 Host side (here): frame read, bbox selection (train jitter / test padding or
-detector box), crop + resize, keypoint projection, all numpy. Device side
-(train and eval steps): color augmentation, ImageNet normalization and the GT
-binary-code labels. Batches are dicts of stacked numpy arrays; a background
-thread prefetches ahead of the card.
+detector box), crop + resize, keypoint projection, and the train-time
+background replacement, all numpy. Device side (train and eval steps): color
+augmentation, ImageNet normalization and the GT binary-code labels. Batches
+are dicts of stacked numpy arrays; a background thread prefetches ahead of
+the card.
 
 Frames and masks come from the frame cache when one is given
-(`data/framestore.py`), else from the image files through `data/imageio.py`.
-Not ported: the native C++ decode + crop core of the JAX package
-(`native_loader.py`; ROADMAP queues it), and what only the multi-object LM
-path uses: per-object keypoint tables (`obj_idx` is 0 here) and background
-replacement (`bg_paths`).
+(`data/framestore.py`), else from the image files through `data/imageio.py`;
+lm_imgn renders (`data/lm_imgn.py`) take both masks from depth > 0. The
+multi-object variant passes a {obj_id: (N, 3)} keypoint table: each item
+then carries `obj_idx`, its object's row in the stacked keypoint and graph
+tables. Not ported: the native C++ decode + crop core of the JAX package
+(`native_loader.py`; ROADMAP queues it).
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from checkerpose_tpu_torch.data.bop_io import Sample
-from checkerpose_tpu_torch.data.imageio import read_image
+from checkerpose_tpu_torch.data.imageio import read_depth_png, read_image
 from checkerpose_tpu_torch.ops import geometry
-from checkerpose_tpu_torch.ops.crop import get_roi_np
+from checkerpose_tpu_torch.ops.crop import get_roi_np, resize_linear_u8, roi_window
 
 
 class CropDataset:
-    """Per-object crop dataset over a Sample manifest."""
+    """Crop dataset over a Sample manifest, of one object or several."""
 
     def __init__(self, samples: List[Sample], p3d_xyz, *,
                  is_train: bool, crop_size_img: int = 256, crop_size_gt: int = 64,
                  padding_ratio: float = 1.5, resize_method: str = "crop_square_resize",
-                 use_detections: bool = False, seed: int = 0, frame_cache=None):
-        """p3d_xyz: (N, 3) keypoints shared by all samples."""
+                 use_detections: bool = False, seed: int = 0,
+                 bg_paths: Optional[List[str]] = None, change_bg_prob: float = 0.0,
+                 frame_cache=None):
+        """p3d_xyz: (N, 3) keypoints shared by all samples, or a
+        {obj_id: (N, 3)} table for the multi-object variant; items then carry
+        `obj_idx`, the object's rank among the sorted ids (the row of the
+        stacked keypoint and graph tables), else 0.
+
+        bg_paths / change_bg_prob: train-time background replacement (the
+        reference's VOC background swap, `lm_dataset_pytorch.py:489-523`):
+        the pixels outside the full mask take a random background image's,
+        always for "syn" samples and with probability change_bg_prob for the
+        others."""
         self.samples = samples
-        self.p3d = np.asarray(p3d_xyz, np.float64)
+        if isinstance(p3d_xyz, dict):
+            self.p3d_table = {k: np.asarray(v, np.float64) for k, v in p3d_xyz.items()}
+            self.obj_id_to_idx = {oid: i for i, oid in enumerate(sorted(self.p3d_table))}
+            self.p3d = next(iter(self.p3d_table.values()))
+        else:
+            self.p3d_table = None
+            self.obj_id_to_idx = None
+            self.p3d = np.asarray(p3d_xyz, np.float64)
+        self.bg_paths = bg_paths
+        self.change_bg_prob = change_bg_prob
         self.frame_cache = frame_cache
         self.is_train = is_train
         self.crop_size_img = crop_size_img
@@ -50,6 +72,9 @@ class CropDataset:
 
     def __len__(self):
         return len(self.samples)
+
+    def _obj_idx(self, s: Sample) -> np.int32:
+        return np.int32(self.obj_id_to_idx[s.obj_id] if self.obj_id_to_idx else 0)
 
     def dummy_item(self, s: Sample) -> Dict[str, np.ndarray]:
         """Missing detection or unreadable frame -> zero input with
@@ -63,7 +88,7 @@ class CropDataset:
             "bbox": np.zeros(4, np.float32),
             "cam_K": s.cam_K.astype(np.float32),
             "proj_xy": np.zeros((self.p3d.shape[0], 2), np.float32),
-            "obj_id": np.int32(s.obj_id), "obj_idx": np.int32(0),
+            "obj_id": np.int32(s.obj_id), "obj_idx": self._obj_idx(s),
             "scene_id": np.int32(s.scene_id), "im_id": np.int32(s.im_id),
             "valid": np.float32(0.0),
         }
@@ -77,7 +102,8 @@ class CropDataset:
 
     def _sample_dict(self, s: Sample, image, mask_visib, mask_full, bbox,
                      valid: float, im_w: int, im_h: int) -> Dict[str, np.ndarray]:
-        proj_xy, _ = geometry.project_pts(self.p3d, s.cam_K, s.R, s.t)
+        p3d = self.p3d_table[s.obj_id] if self.p3d_table else self.p3d
+        proj_xy, _ = geometry.project_pts(p3d, s.cam_K, s.R, s.t)
         final = geometry.final_bbox(bbox, self.resize_method, im_w, im_h)
         return {
             "image": image, "mask_visib": mask_visib, "mask_full": mask_full,
@@ -85,21 +111,29 @@ class CropDataset:
             "bbox": final.astype(np.float32),
             "cam_K": s.cam_K.astype(np.float32),
             "proj_xy": proj_xy.astype(np.float32),
-            "obj_id": np.int32(s.obj_id), "obj_idx": np.int32(0),
+            "obj_id": np.int32(s.obj_id), "obj_idx": self._obj_idx(s),
             "scene_id": np.int32(s.scene_id), "im_id": np.int32(s.im_id),
             "valid": np.float32(valid),
         }
 
     def _read_sample(self, s: Sample):
         """(rgb, mask_visib, mask_full) from the frame cache when present,
-        else decoded from the files; None when any of them is unreadable."""
+        else decoded from the files; an lm_imgn sample (a depth_path, no mask
+        files) takes both masks from depth > 0 (the reference's
+        lm_dataset_pytorch.py:368-371). None when any of them is unreadable."""
         img = mask_visib = mask_full = None
         if self.frame_cache is not None:
             img = self.frame_cache.get_frame(s.rgb_path)
-            mask_visib = self.frame_cache.get_mask(s.mask_visib_path)
-            mask_full = self.frame_cache.get_mask(s.mask_path)
+            if s.mask_visib_path:
+                mask_visib = self.frame_cache.get_mask(s.mask_visib_path)
+                mask_full = self.frame_cache.get_mask(s.mask_path)
         if img is None:
             img = read_image(s.rgb_path)
+        if mask_visib is None and s.depth_path:
+            depth = read_depth_png(s.depth_path)
+            if depth is not None:
+                mask_visib = (depth > 0).astype(np.uint8) * 255
+                mask_full = mask_visib.copy()
         if mask_visib is None:
             mask_visib = read_image(s.mask_visib_path, gray=True)
         if mask_full is None:
@@ -117,7 +151,15 @@ class CropDataset:
             print(f"cannot load sample {s.rgb_path}", flush=True)
             return self.dummy_item(s)
         img, mask_visib, mask_full = decoded
+        # draws from self.rng in the JAX package's order: the swap's coin
+        # (real samples only), its background, then the bbox jitter
+        bg_path = None
+        if self.is_train and self.bg_paths and (
+                s.img_type == "syn" or self.rng.random() < self.change_bg_prob):
+            bg_path = self.bg_paths[int(self.rng.integers(len(self.bg_paths)))]
         bbox = self._choose_bbox(s)
+        if bg_path is not None:
+            img = self._replace_bg(img, mask_full, bg_path, bbox)
         roi_img = get_roi_np(img, bbox, self.crop_size_img, "linear", self.resize_method)
         roi_mv = get_roi_np(mask_visib, bbox, self.crop_size_gt, "nearest", self.resize_method)
         roi_mf = get_roi_np(mask_full, bbox, self.crop_size_gt, "nearest", self.resize_method)
@@ -126,6 +168,26 @@ class CropDataset:
             roi_mv.astype(np.float32) / 255.0,
             roi_mf.astype(np.float32) / 255.0,
             bbox, 1.0, img.shape[1], img.shape[0])
+
+    def _replace_bg(self, img, mask_full, bg_path: str, bbox):
+        """img with the pixels outside the full mask (<= 127) taken from the
+        background at bg_path resized to the frame bilinearly; img itself
+        when the background does not read. Only the window the crop of bbox
+        reads is resized and replaced (`ops/crop.py::roi_window`), which
+        gives the crop of a whole-frame swap at a fraction of the cost."""
+        bg = read_image(bg_path)
+        if bg is None:
+            return img
+        h, w = img.shape[:2]
+        y0, y1, x0, x1 = roi_window(bbox, self.resize_method, h, w)
+        out = img.copy()
+        if y1 <= y0 or x1 <= x0:
+            return out
+        win = resize_linear_u8(bg, h, w, rows=(y0, y1), cols=(x0, x1))
+        region = out[y0:y1, x0:x1]
+        keep_bg = mask_full[y0:y1, x0:x1] <= 127
+        region[keep_bg] = win[keep_bg]
+        return out
 
 
 def _stack(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

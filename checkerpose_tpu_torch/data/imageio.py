@@ -1,17 +1,21 @@
-"""PNG/JPEG files through whichever codec imports: OpenCV, else Pillow.
+"""PNG/JPEG files through whichever codec imports: OpenCV, else Pillow, else
+this module's own PNG codec.
 
-The port's data path needs neither (frames and masks come from the frame
-cache, `data/framestore.py`, and crops are resized in numpy, `ops/crop.py`);
-a file is decoded or encoded only through these helpers, and a decode with
-no codec installed raises an error that says how to do without one.
+The port's data path needs neither library (frames and masks come from the
+frame cache, `data/framestore.py`, and crops are resized in numpy,
+`ops/crop.py`); a file is decoded or encoded only through these helpers.
+With no library installed, `read_image` decodes 8-bit grayscale and RGB PNGs
+(the lm_imgn renders and background images are colour PNGs) with the small
+zlib codec below, and anything else (a JPEG, a missing file) raises an error
+that says how to do without a library.
 
 Depth maps (BOP ships them as 16-bit single-channel PNGs) go through
-`read_depth_png` / `write_depth_png`, values unchanged, by a small zlib codec
-of this module's own for 16-bit (and 8-bit) grayscale PNG, whichever image
-library is installed, so that VSD scoring and the synthetic fixture read and
-write them one way. Rows with the none, sub or up filter decode in numpy;
-average and Paeth rows go through a per-byte loop. `png_size` reads a PNG's
-width and height from its header alone.
+`read_depth_png` / `write_depth_png`, values unchanged, by the same codec
+whichever image library is installed, so that VSD scoring and the synthetic
+fixture read and write them one way; `write_rgb_png` writes colour PNGs
+through it. Rows with the none, sub or up filter decode in numpy; average
+and Paeth rows go through a per-byte loop. `png_size` reads a PNG's width
+and height from its header alone.
 """
 from __future__ import annotations
 
@@ -50,7 +54,10 @@ def have_codec() -> bool:
 
 def read_image(path: str, gray: bool = False) -> Optional[np.ndarray]:
     """(H, W, 3) RGB or, with gray, (H, W) uint8; None when the file is
-    missing or does not decode."""
+    missing or does not decode. Without cv2 and Pillow, an 8-bit grayscale
+    or RGB PNG decodes through `decode_png` (a gray file read as colour is
+    repeated over the channels; read as gray, an RGB file is refused), and
+    anything else raises NoImageCodecError."""
     cv2 = _cv2()
     if cv2 is not None:
         img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
@@ -59,8 +66,19 @@ def read_image(path: str, gray: bool = False) -> Optional[np.ndarray]:
         return np.ascontiguousarray(img[:, :, ::-1])
     Image = _pil_image()
     if Image is None:
+        try:
+            with open(path, "rb") as f:
+                img = decode_png(f.read())
+        except OSError:
+            img = None
+        if img is not None and img.dtype == np.uint8:
+            if img.ndim == (2 if gray else 3):
+                return img
+            if not gray:                                # a gray file read as colour
+                return np.repeat(img[:, :, None], 3, axis=2)
         raise NoImageCodecError(
-            f"cannot decode {path}: neither cv2 nor PIL is importable. Read frames and "
+            f"cannot decode {path}: neither cv2 nor PIL is importable, and the package's "
+            f"own codec reads 8-bit grayscale and RGB PNG files only. Read frames and "
             f"masks from a frame cache instead (data/framestore.py::build_frame_cache on a "
             f"machine with a codec, or make_synthetic_bop(..., raw_cache=True)); "
             f"cfg frame_cache_dir names it")
@@ -114,20 +132,41 @@ def write_depth_png(path: str, depth: np.ndarray) -> None:
         f.write(encode_gray16_png(np.ascontiguousarray(depth, np.uint16)))
 
 
+def write_rgb_png(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 RGB as an 8-bit colour PNG through the
+    package's own encoder (no image library needed)."""
+    with open(path, "wb") as f:
+        f.write(encode_rgb_png(img))
+
+
 def _chunk(tag: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + tag + body
             + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
 
 
-def encode_gray16_png(depth: np.ndarray) -> bytes:
-    """PNG bytes of (H, W) uint16: one IDAT, filter type 0 on every row,
-    samples big-endian."""
-    h, w = depth.shape
-    rows = np.zeros((h, 1 + 2 * w), np.uint8)          # column 0: the filter byte
-    rows[:, 1:] = depth.astype(">u2").view(np.uint8).reshape(h, 2 * w)
-    ihdr = struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)
+def _encode(samples: np.ndarray, w: int, h: int, depth: int, color: int) -> bytes:
+    """PNG bytes of (h, row bytes) uint8 samples: one IDAT, filter type 0
+    on every row."""
+    rows = np.zeros((h, 1 + samples.shape[1]), np.uint8)   # column 0: the filter byte
+    rows[:, 1:] = samples
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
     return (_PNG_SIG + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def encode_gray16_png(depth: np.ndarray) -> bytes:
+    """PNG bytes of (H, W) uint16, samples big-endian."""
+    h, w = depth.shape
+    return _encode(depth.astype(">u2").view(np.uint8).reshape(h, 2 * w), w, h, 16, 0)
+
+
+def encode_rgb_png(img: np.ndarray) -> bytes:
+    """PNG bytes of (H, W, 3) uint8 RGB (colour type 2, 8 bits)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) RGB, got {img.shape}")
+    h, w = img.shape[:2]
+    return _encode(img.reshape(h, 3 * w), w, h, 8, 2)
 
 
 def _unfilter_row(ftype: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
@@ -159,9 +198,14 @@ def _unfilter_row(ftype: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> n
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def decode_gray_png(data: bytes) -> Optional[np.ndarray]:
-    """(H, W) uint16 or uint8 of a non-interlaced 16- or 8-bit grayscale PNG;
-    None for anything else (another colour type, bit depth or interlace)."""
+# (colour type, bit depth) -> samples per pixel, of the PNGs `decode_png` reads
+_FORMATS = {(0, 8): 1, (0, 16): 1, (2, 8): 3}
+
+
+def decode_png(data: bytes) -> Optional[np.ndarray]:
+    """A non-interlaced PNG of 8- or 16-bit grayscale ((H, W) uint8 or
+    uint16) or 8-bit RGB ((H, W, 3) uint8); None for anything else
+    (another colour type, bit depth or interlace)."""
     if data[:8] != _PNG_SIG:
         return None
     pos, idat, hdr = 8, [], None
@@ -178,9 +222,10 @@ def decode_gray_png(data: bytes) -> Optional[np.ndarray]:
     if hdr is None:
         return None
     w, h, depth, color, _, _, interlace = hdr
-    if color != 0 or depth not in (8, 16) or interlace != 0:
+    spp = _FORMATS.get((color, depth))
+    if spp is None or interlace != 0:
         return None
-    bpp = depth // 8
+    bpp = spp * depth // 8                              # bytes per pixel
     stride = 1 + w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < h * stride:
@@ -190,6 +235,13 @@ def decode_gray_png(data: bytes) -> Optional[np.ndarray]:
     prior = np.zeros(w * bpp, np.uint8)
     for y in range(h):
         prior = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prior, bpp)
-    if depth == 8:
-        return out
-    return out.view(">u2").reshape(h, w).astype(np.uint16)
+    if depth == 16:
+        return out.view(">u2").reshape(h, w).astype(np.uint16)
+    return out.reshape(h, w, 3) if spp == 3 else out
+
+
+def decode_gray_png(data: bytes) -> Optional[np.ndarray]:
+    """(H, W) uint16 or uint8 of a non-interlaced 16- or 8-bit grayscale PNG;
+    None for anything else."""
+    img = decode_png(data)
+    return img if img is not None and img.ndim == 2 else None

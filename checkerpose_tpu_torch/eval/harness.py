@@ -7,12 +7,14 @@ visib mask), pose solve, ADD(-S) pass rates at 0.02 / 0.05 / 0.1 diameter,
 rotation and translation errors, seg metrics, AUC; `calibrate_decode_tau`
 sweeps the adaptive decode's tau on a held-out slice.
 
-Everything per image runs batched on the module's device; each batch comes
-back to the host in one copy, and the host only aggregates. The module must
-be in eval mode (`net.eval()`). The solver draws its hypotheses from one
-`torch.Generator` on the module's device, seeded by `seed`, so a sweep is
-reproducible on one device (the JAX package splits a PRNG key per batch; the
-two packages' draws differ).
+`knn_idx` is a static (N, K) graph or, for the multi-object variant, the
+stacked (O, N, K) table of every object's graph; each batch then carries
+`obj_idx`, the row of its sample's object. Everything per image runs batched
+on the module's device; each batch comes back to the host in one copy, and
+the host only aggregates. The module must be in eval mode (`net.eval()`).
+The solver draws its hypotheses from one `torch.Generator` on the module's
+device, seeded by `seed`, so a sweep is reproducible on one device (the JAX
+package splits a PRNG key per batch; the two packages' draws differ).
 """
 from __future__ import annotations
 
@@ -47,10 +49,14 @@ def _module_device(net) -> torch.device:
 
 
 def _graph(knn_idx, dev) -> torch.Tensor:
-    """The static (N, K) graph as int32 on `dev` (host-checked if numpy)."""
+    """The static (N, K) graph, or the multi-object variant's stacked
+    (O, N, K) table (gathered per sample by `obj_idx` in the steps), as int32
+    on `dev`; a numpy graph is checked on the host, each table row against
+    its own N."""
     if isinstance(knn_idx, torch.Tensor):
         return knn_idx.to(dev)
-    return knn_tensor(knn_idx, len(knn_idx), dev)
+    knn = np.asarray(knn_idx)
+    return knn_tensor(knn, knn.shape[-2], dev)
 
 
 def _on(batch, keys, dev) -> Dict[str, torch.Tensor]:
@@ -91,7 +97,7 @@ def evaluate_init(net, knn_idx, loader, crop_size_gt: int,
     accs_mask, accs_x, accs_y, bit_errs = [], [], [], []
     for batch in loader:
         n_real = int(batch.get("n_real", len(batch["image"])))
-        out = _to_host(ev(_on(batch, ("image", "proj_xy", "bbox"), dev)))
+        out = _to_host(ev(_on(batch, ("image", "proj_xy", "bbox", "obj_idx"), dev)))
         keep = np.asarray(batch.get("valid", np.ones(n_real)))[:n_real] > 0.5
         accs_mask.append(out["acc_mask"][:n_real][keep])
         accs_x.append(out["acc_x"][:n_real][keep])
@@ -208,8 +214,8 @@ def evaluate_pipeline(net, knn_idx, loader, p3d_xyz, diameter: float,
             break
         t = mark("loader", t)
         n_real = int(batch.get("n_real", len(batch["image"])))
-        on = _on(batch, ("image", "p3d_normed", "R", "t", "bbox", "cam_K", "proj_xy",
-                         "mask_visib"), dev)
+        on = _on(batch, ("image", "p3d_normed", "obj_idx", "R", "t", "bbox", "cam_K",
+                         "proj_xy", "mask_visib"), dev)
         out = fwd(on)
         sample_valid = np.asarray(batch["valid"]) > 0.5
         B = on["R"].shape[0]

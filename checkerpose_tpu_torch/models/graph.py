@@ -1,13 +1,20 @@
-"""EdgeConv over a static keypoint KNN graph (counterpart of
+"""EdgeConv over a keypoint KNN graph (counterpart of
 checkerpose_tpu/models/graph.py::EdgeConv).
 
 concat([x_j - x_i, x_i]) -> Dense (no bias) -> BN -> LeakyReLU -> max_K.
 Features are channel-last (B, N, C), like the JAX package. The Dense kernel
-keeps the Flax name `conv`. `train()` / `eval()` decides the path:
+keeps the Flax name `conv`. `train()` / `eval()` and the graph's rank decide
+the path:
 
-  eval   the fused op (ops/edgeconv.py::edgeconv_fused, a CUDA kernel on the
+  eval, static (N, K) graph
+         the fused op (ops/edgeconv.py::edgeconv_fused, a CUDA kernel on the
          card) with BN's running statistics folded into a scale and a bias;
-  train  the per-node form in plain PyTorch (ops/edgeconv.py::edgeconv_train)
+  eval, per-sample (B, N, K) graph (the multi-object variant)
+         ops/edgeconv.py::edgeconv_eval_per_sample, plain PyTorch with BN
+         unfolded, the path the JAX package takes for such an index (its
+         kernel bakes in one static graph);
+  train, either graph
+         the per-node form in plain PyTorch (ops/edgeconv.py::edgeconv_train)
          with batch-statistics BN over the whole (B, N, K, C') edge tensor,
          as the JAX package trains outside its kernel; autograd gives the
          backward.
@@ -29,8 +36,8 @@ import torch
 import torch.nn as nn
 
 from checkerpose_tpu_torch.models.layers import BatchNorm, Dense
-from checkerpose_tpu_torch.ops.edgeconv import (edgeconv_fused, edgeconv_train,
-                                                pack_edgeconv_weights)
+from checkerpose_tpu_torch.ops.edgeconv import (edgeconv_eval_per_sample, edgeconv_fused,
+                                                edgeconv_train, pack_edgeconv_weights)
 
 
 class EdgeConv(nn.Module):
@@ -87,12 +94,16 @@ class EdgeConv(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x, knn_idx):
-        """x (B, N, C); knn_idx static (N, K) int32 on x's device."""
-        if knn_idx.dim() != 2:
-            raise ValueError(
-                "per-sample (B, N, K) graphs belong to the LM variant, which is "
-                "not ported yet (ROADMAP.md, queue 1); pass a static (N, K) graph")
+        """x (B, N, C); knn_idx static (N, K) or per-sample (B, N, K) int32
+        on x's device. A per-sample graph neither folds nor touches the kept
+        fused weights."""
+        if knn_idx.dim() not in (2, 3):
+            raise ValueError(f"knn_idx must be (N, K) or (B, N, K), got {tuple(knn_idx.shape)}")
         x = x.to(self.dtype)
+        if knn_idx.dim() == 3:
+            w1, w2m1 = self.split_weights()
+            fn = edgeconv_train if self.training else edgeconv_eval_per_sample
+            return fn(x, knn_idx, w1, w2m1, self.bn, self.leaky_slope)
         if self.training:
             w1, w2m1 = self.split_weights()
             return edgeconv_train(x, knn_idx, w1, w2m1, self.bn, self.leaky_slope)

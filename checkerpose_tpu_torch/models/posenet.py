@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -255,5 +256,10 @@ def make_posenet(*, device="cuda", seed: int = 0, **cfg) -> PoseNet:
 
 
 def knn_tensor(knn_idx, npoint: int, device) -> torch.Tensor:
-    """A host-checked static (N, K) graph as int32 on `device`."""
-    return torch.as_tensor(check_knn(knn_idx, npoint), device=device)
+    """A host-checked static (N, K) graph, or the multi-object variant's
+    stacked (O, N, K) table of them (each row checked), as int32 on `device`."""
+    knn = np.asarray(knn_idx)
+    if knn.ndim == 3:
+        return torch.as_tensor(np.stack([check_knn(row, npoint) for row in knn]),
+                               device=device)
+    return torch.as_tensor(check_knn(knn, npoint), device=device)

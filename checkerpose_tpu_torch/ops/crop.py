@@ -48,22 +48,34 @@ def _linear_taps(src: int, dst: int):
     return i0, i1, f
 
 
-def _resize_linear_u8(img: np.ndarray, size: int) -> np.ndarray:
+def _resize_linear_u8(img: np.ndarray, size, rows=None, cols=None) -> np.ndarray:
+    """To (size, size) or, for a pair, to (height, width); `rows` / `cols`
+    (start, stop) compute only that part of the output, the same values."""
     h, w = img.shape[:2]
-    x0, x1, fx = _linear_taps(w, size)
-    y0, y1, fy = _linear_taps(h, size)
+    oh, ow = (size, size) if isinstance(size, int) else size
+    x0, x1, fx = (a[slice(*cols or (0, ow))] for a in _linear_taps(w, ow))
+    y0, y1, fy = (a[slice(*rows or (0, oh))] for a in _linear_taps(h, oh))
+    oh, ow = len(y0), len(x0)
     # weights rounded each on its own, as OpenCV's saturate_cast<short> does
     ax0 = np.rint((1.0 - fx) * _COEF_ONE).astype(np.int32)
     ax1 = np.rint(fx * _COEF_ONE).astype(np.int32)
     by0 = np.rint((1.0 - fy) * _COEF_ONE).astype(np.int32)
     by1 = np.rint(fy * _COEF_ONE).astype(np.int32)
-    shape = (1, size) + (1,) * (img.ndim - 2)
+    shape = (1, ow) + (1,) * (img.ndim - 2)
     rows = img.astype(np.int32)
-    hx = rows[:, x0] * ax0.reshape(shape) + rows[:, x1] * ax1.reshape(shape)   # (h, size, ...)
-    shape = (size,) + (1,) * (img.ndim - 1)
+    hx = rows[:, x0] * ax0.reshape(shape) + rows[:, x1] * ax1.reshape(shape)   # (h, ow, ...)
+    shape = (oh,) + (1,) * (img.ndim - 1)
     d0, d1 = hx[y0] >> 4, hx[y1] >> 4
     out = ((by0.reshape(shape) * d0) >> 16) + ((by1.reshape(shape) * d1) >> 16)
     return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def resize_linear_u8(img: np.ndarray, height: int, width: int, rows=None,
+                     cols=None) -> np.ndarray:
+    """Bilinear resize of an (h, w[, c]) uint8 image to (height, width[, c])
+    with `cv2.resize(..., INTER_LINEAR)`'s geometry and fixed point; with
+    `rows` and `cols` ((start, stop) each), only that window of the result."""
+    return _resize_linear_u8(np.asarray(img, np.uint8), (height, width), rows, cols)
 
 
 def _resize_linear_float(img: np.ndarray, size: int) -> np.ndarray:
@@ -96,14 +108,28 @@ def _resize_np(img: np.ndarray, crop_size: int, interpolation: str) -> np.ndarra
     return _resize_linear_float(img, crop_size)
 
 
+def _square(bbox):
+    """(x1, y1, x2, y2, side) of the square crop around bbox."""
+    x1, y1, bw, bh = int(bbox[0]), int(bbox[1]), int(bbox[2]), int(bbox[3])
+    sq = square_bbox(np.array([x1, y1, bw, bh]))
+    x1, y1 = int(sq[0]), int(sq[1])
+    return x1, y1, x1 + int(sq[2]), y1 + int(sq[3]), int(max(bh, bw))
+
+
+def roi_window(bbox, resize_method: str, height: int, width: int):
+    """(y0, y1, x0, x1): the part of a height x width frame `get_roi_np`
+    reads for bbox; nothing outside it reaches the crop."""
+    if resize_method == "crop_resize":
+        return (max(0, int(bbox[1])), min(height, int(bbox[1] + bbox[3])),
+                max(0, int(bbox[0])), min(width, int(bbox[0] + bbox[2])))
+    x1, y1, x2, y2, _ = _square(bbox)
+    return max(y1, 0), min(y2, height), max(x1, 0), min(x2, width)
+
+
 def crop_square_resize_np(img: np.ndarray, bbox, crop_size: int,
                           interpolation: str = "linear") -> np.ndarray:
     """Zero-pad the bbox to square, crop (clipping to the image), resize."""
-    x1, y1, bw, bh = int(bbox[0]), int(bbox[1]), int(bbox[2]), int(bbox[3])
-    sq = square_bbox(np.array([x1, y1, bw, bh]))
-    x1, y1, side = int(sq[0]), int(sq[1]), int(max(bh, bw))
-    x2, y2 = x1 + int(sq[2]), y1 + int(sq[3])
-
+    x1, y1, x2, y2, side = _square(bbox)
     roi = np.zeros((side, side) + img.shape[2:], dtype=img.dtype)
     rx1 = max(-x1, 0)
     x1c = max(x1, 0)
@@ -111,19 +137,15 @@ def crop_square_resize_np(img: np.ndarray, bbox, crop_size: int,
     ry1 = max(-y1, 0)
     y1c = max(y1, 0)
     ry2 = ry1 + min(img.shape[0] - y1c, y2 - y1c)
-    x2c = min(x2, img.shape[1])
-    y2c = min(y2, img.shape[0])
-    roi[ry1:ry2, rx1:rx2] = img[y1c:y2c, x1c:x2c]
+    y0w, y1w, x0w, x1w = roi_window(bbox, "crop_square_resize", *img.shape[:2])
+    roi[ry1:ry2, rx1:rx2] = img[y0w:y1w, x0w:x1w]
     return _resize_np(roi, crop_size, interpolation)
 
 
 def crop_resize_np(img: np.ndarray, bbox, crop_size: int,
                    interpolation: str = "linear") -> np.ndarray:
     """Clip bbox to image, crop, resize (aspect NOT preserved)."""
-    x1 = max(0, int(bbox[0]))
-    x2 = min(img.shape[1], int(bbox[0] + bbox[2]))
-    y1 = max(0, int(bbox[1]))
-    y2 = min(img.shape[0], int(bbox[1] + bbox[3]))
+    y1, y2, x1, x2 = roi_window(bbox, "crop_resize", *img.shape[:2])
     return _resize_np(img[y1:y2, x1:x2], crop_size, interpolation)
 
 

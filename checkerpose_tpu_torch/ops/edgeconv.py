@@ -20,6 +20,14 @@ card, and `edgeconv_route` picks one from the dtype and the shapes alone:
 kernel or raises, with no fallback. `edgeconv_fused.launches` counts kernel
 launches (never the plain version's calls) and
 `edgeconv_fused.launches_by_route` splits that count by route.
+
+A per-sample (B, N, K) graph (the multi-object variant: each sample reads its
+own object's graph) never reaches a kernel, as it never reaches the Pallas
+kernel in the JAX package (`checkerpose_tpu/models/graph.py::EdgeConv` sends
+a 3-D index to XLA): `edgeconv_train` trains on either graph, and
+`edgeconv_eval_per_sample` evaluates on a per-sample one with BatchNorm's
+running statistics unfolded, in plain PyTorch on every device.
+`edgeconv_eval_per_sample.calls` counts its calls.
 """
 from __future__ import annotations
 
@@ -57,24 +65,62 @@ def edgeconv_fused_plain(x, knn, w1, w2m1, scale, bias, slope: float = 0.2):
     return e.amax(dim=2).to(x.dtype)
 
 
+def gather_neighbors(y, knn):
+    """Neighbour rows of y (B, N, C): a static (N, K) graph gives y[:, knn],
+    a per-sample (B, N, K) one `torch.gather` over dim 1 with the (B, N*K)
+    index expanded over the channels (the JAX package's `take_along_axis`
+    form). Returns (B, N, K, C) of y's dtype. Autograd's backward of either
+    is a scatter-add of the K contributions per node in y's dtype (bf16 in a
+    bf16 net, as the JAX package's transpose of the gather); on the card it
+    adds with atomics, so its rounding order is not deterministic."""
+    knn = knn.long()
+    if knn.dim() == 2:
+        return y[:, knn]
+    if knn.dim() != 3 or knn.shape[0] != y.shape[0] or knn.shape[1] != y.shape[1]:
+        raise ValueError(f"knn must be (N, K) or (B, N, K) for y {tuple(y.shape)}, "
+                         f"got {tuple(knn.shape)}")
+    B, N, K = knn.shape
+    idx = knn.reshape(B, N * K, 1).expand(B, N * K, y.shape[-1])
+    return torch.gather(y, 1, idx).view(B, N, K, y.shape[-1])
+
+
 def edgeconv_train(x, knn, w1, w2m1, bn, slope: float = 0.2):
     """Training EdgeConv, the per-node form the JAX package trains with
     (checkerpose_tpu/models/graph.py::EdgeConv, `train=True`):
 
-        y = x @ w1, z = x @ w2m1, e = y[:, knn] + z[:, :, None, :]
+        y = x @ w1, z = x @ w2m1, e = gather_neighbors(y, knn) + z[:, :, None, :]
         out = max_k leaky(bn(e))
 
-    `bn` is called on the whole (B, N, K, C') edge tensor with the channel
-    last and returns f32 (a models/layers.py::BatchNorm in train mode takes
-    the batch statistics over (B, N, K) and updates its running ones); the
-    result is cast to x's dtype before the activation. Plain PyTorch on any
-    device: the JAX package runs no kernel here either, and autograd gives
-    the backward (the gather's is a scatter-add)."""
+    on a static (N, K) or a per-sample (B, N, K) graph. `bn` is called on
+    the whole (B, N, K, C') edge tensor with the channel last and returns
+    f32 (a models/layers.py::BatchNorm in train mode takes the batch
+    statistics over (B, N, K) and updates its running ones); the result is
+    cast to x's dtype before the activation. Plain PyTorch on any device:
+    the JAX package runs no kernel here either, and autograd gives the
+    backward (see `gather_neighbors` for the gather's)."""
     y = x @ w1                                           # (B, N, C')
     z = x @ w2m1
-    e = y[:, knn.long()] + z[:, :, None, :]              # (B, N, K, C')
+    e = gather_neighbors(y, knn) + z[:, :, None, :]      # (B, N, K, C')
     e = F.leaky_relu(bn(e, channel_dim=-1).to(x.dtype), slope)
     return e.amax(dim=2)
+
+
+def edgeconv_eval_per_sample(x, knn, w1, w2m1, bn, slope: float = 0.2):
+    """Inference EdgeConv on a per-sample (B, N, K) graph, the arithmetic of
+    the JAX package's XLA path for that index: y = x @ w1 and z = x @ w2m1
+    in x's dtype, e = gather(y) + z in that dtype, BatchNorm with the
+    running statistics in f32, unfolded (`bn` in eval mode), cast back,
+    leaky, max over K. Not a fallback from the kernels, which take a static
+    graph only: the one path for this index on every device. Counts its
+    calls in `edgeconv_eval_per_sample.calls`."""
+    if knn.dim() != 3:
+        raise ValueError(f"knn must be a per-sample (B, N, K) graph, got {tuple(knn.shape)}")
+    if bn.training:
+        raise RuntimeError("edgeconv_eval_per_sample reads the running statistics: "
+                           "bn must be in eval mode")
+    edgeconv_eval_per_sample.calls += 1
+    # the training arithmetic; `bn` in eval mode reads its running statistics
+    return edgeconv_train(x, knn, w1, w2m1, bn, slope)
 
 
 def _ceil_to(v: int, m: int) -> int:
@@ -157,8 +203,8 @@ def _check(x, knn, w1, w2m1, scale, bias, slope):
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, C), got {tuple(x.shape)}")
     if knn.dim() != 2:
-        raise ValueError(f"knn must be a static (N, K) graph, got "
-                         f"{tuple(knn.shape)} (a per-sample graph is not supported)")
+        raise ValueError(f"knn must be a static (N, K) graph, got {tuple(knn.shape)} "
+                         f"(a per-sample graph goes to edgeconv_eval_per_sample)")
     B, N, C = x.shape
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -287,8 +333,10 @@ def edgeconv_fused(x, knn, w1, w2m1, scale, bias, slope: float = 0.2,
 
 
 def reset_launch_counts():
+    """Zero the kernels' launch counts and the per-sample path's call count."""
     edgeconv_fused.launches = 0
     edgeconv_fused.launches_by_route = {"tc": 0, "fma": 0}
+    edgeconv_eval_per_sample.calls = 0
 
 
 reset_launch_counts()

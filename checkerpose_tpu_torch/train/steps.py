@@ -20,9 +20,12 @@ Loss structure:
   * train: RoI + masked x/y over 3+stage bits + weighted visib/full seg mask
     L1, and the opt-in auxiliary terms.
 
-Not ported yet, with their queue in ROADMAP.md: `nocs_labels` and
-`make_nocs_train_step` (dense NOCS pretraining), and the per-sample graph of
-the multi-object variant (`knn_for_batch` takes a static graph only).
+Every step takes a static (N, K) graph or, for the multi-object variant, the
+stacked (O, N, K) table of every object's graph, which `knn_for_batch`
+gathers per sample by `batch["obj_idx"]`.
+
+Not ported yet, with its queue in ROADMAP.md: `nocs_labels` and
+`make_nocs_train_step` (dense NOCS pretraining).
 """
 from __future__ import annotations
 
@@ -75,12 +78,14 @@ def make_nocs_train_step(*args, **kwargs):
 
 
 def knn_for_batch(knn_idx, batch):
-    """Single-object: the static (N, K) index, used as it is. The stacked
-    (O, N, K) table of the multi-object variant, gathered per sample, is not
-    ported yet."""
+    """Single-object: the static (N, K) graph, returned as it is.
+    Multi-object: the stacked (O, N, K) table, on the device, indexed by
+    `batch["obj_idx"]` (B,) -> the per-sample (B, N, K) graph each EdgeConv
+    gathers with (the JAX package's `jnp.take` over the objects)."""
+    if knn_idx.dim() == 3:
+        return knn_idx.index_select(0, batch["obj_idx"].to(knn_idx.device).long())
     if knn_idx.dim() != 2:
-        raise NotImplementedError("per-sample (B, N, K) graphs belong to the multi-object "
-                                  "variant, which is not ported yet (ROADMAP.md, queue 1)")
+        raise ValueError(f"knn_idx must be (N, K) or (O, N, K), got {tuple(knn_idx.shape)}")
     return knn_idx
 
 
@@ -228,7 +233,8 @@ def make_pretrain_step(net, knn_idx, crop_size_gt: int, *, mask_loss_type="BCE",
                        proj_loss_type="BCE", proj_bit_loss_weight=1.0,
                        use_pepper_salt=True, use_motion_blur=True, color_aug_prob=0.8,
                        aux_heatmap_weight=0.0):
-    """Pretrain step of an InitNet; knn_idx (N, K) int32 on the net's device."""
+    """Pretrain step of an InitNet; knn_idx (N, K) or stacked (O, N, K)
+    int32 on the net's device (`knn_for_batch`)."""
 
     def step(state: TrainState, batch, generator):
         _check_training(state, net)
@@ -316,9 +322,9 @@ def train_loss(net, knn_idx, imgs, batch, stage: int, *, sel=None, roi_loss_type
     masks_on = prefix_correct_mask and not full_bits and active_bits > 3
     roi_bit, x_id, y_id = device_labels(batch, 2 ** res_log2)
     gt_x, gt_y = _code_labels_bits(x_id, y_id, res_log2, active_bits)
-    tf_gather = None if sel is None else (x_id, y_id, roi_bit, sel)
-    out = net(imgs, knn_for_batch(knn_idx, batch), batch["p3d_normed"], stage=stage,
-              tf_gather=tf_gather)
+    # only PoseNet takes tf_gather; the woProg ablation has no refine gathers
+    tf = {} if sel is None else {"tf_gather": (x_id, y_id, roi_bit, sel)}
+    out = net(imgs, knn_for_batch(knn_idx, batch), batch["p3d_normed"], stage=stage, **tf)
 
     l_roi = unmasked_code_loss(out["roi_logit"], roi_bit, roi_loss_type)
     metrics = {}
@@ -365,8 +371,9 @@ def make_train_step(net, knn_idx, stage: int, *, roi_loss_type="BCE", proj_loss_
                     color_aug_prob=0.8, aux_heatmap_weight=0.0, aux_refine_weight=0.0,
                     teacher_force_prob=0.0, coord_reg_weight=0.0, bit_weights=None,
                     prefix_correct_mask=False):
-    """Full-pipeline train step of a PoseNet at one curriculum stage;
-    knn_idx (N, K) int32 on the net's device.
+    """Full-pipeline train step of a PoseNet (or PoseNetWoProg) at one
+    curriculum stage; knn_idx (N, K) or stacked (O, N, K) int32 on the net's
+    device (`knn_for_batch`).
 
     full_bits: labels span the full code width at every stage.
     aux_heatmap_weight / aux_refine_weight: weights of `_aux_heatmap_loss` /

@@ -70,6 +70,31 @@ Phases (each raises on failure; the script then exits non-zero):
               (mean, first, median of the later ones), seconds per eval,
               peak memory, MSSD + MSPD device ms and VSD's host ms per
               rendered frame.
+  9. lm       the LM multi-object workflow through pretrain_lm, train_lm and
+              test_lm at the synthetic LM configs' width (hrnet_w18, 512
+              keypoints, K=20, res_log2 6, 3 graph modules per refine stage,
+              batch 64) on a fixture the port generates (4 objects, 2 x 128
+              train_real and 2 x 32 test images, an lm_imgn tree of 4 x 16
+              renders and 2 backgrounds written by the port's own PNG codec),
+              real images mixed with lm_imgn renders and the background swap
+              on: pretrain_lm 20 iterations, train_lm 20 resumed to 30, test_lm
+              hard (adx_type visib) and adaptive (tau calibrated), the woProg
+              ablation (4 iterations, test). Every EdgeConv there reads a
+              per-sample (B, N, K) graph, which takes the plain per-sample path
+              as in the JAX package and launches no kernel. Gates: (a) losses,
+              checkpoints under lm13, every eval sweeps all objects, 0 kernel
+              launches and 2 per-sample calls a forward batch; (b) the init
+              handoff, per-object adx10 and gate scores, the resume, 11
+              per-sample calls a batch, batches that mix objects, the
+              background swap on lm_imgn samples; (c) the per-sample path
+              against the tensor-core kernel launched per object on a static
+              graph, on one eval batch's EdgeConv inputs; (d) a multi-object
+              train step on the card against the CPU (phase train's bars);
+              (e) the test reports, tau on its grid, woProg ids < 64. Prints
+              ms per iteration and its ratio to the single-object train CLI,
+              peak memory, s per eval, and torch.profiler device ms of the
+              per-sample EdgeConv in a train step and an eval forward, beside
+              the same inputs through the tensor-core kernel.
 Then one JSON line with the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -548,6 +573,11 @@ def _on(device, batch):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _stack_items(items):
+    """Dataset items (dicts of numpy arrays) -> one batch dict."""
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
 def _edgeconvs(net):
     from checkerpose_tpu_torch.models.graph import EdgeConv
     return [m for m in net.modules() if isinstance(m, EdgeConv)]
@@ -564,21 +594,29 @@ def _falls(losses, what):
     return first, last
 
 
-def count_kernel_launches(fn, device):
-    """(kernels launched on the card, their summed device ms) of one call of
-    `fn`, from torch.profiler; (None, None) off the card or where the
-    profiler records no device event."""
+def _device_kernels(fn, device):
+    """[(kernel name, device ms)] of the kernels one call of `fn` launched on
+    the card (memory copies and sets left out), from torch.profiler; None
+    off the card (fn does not run) or where the profiler records no device
+    event."""
     if device.type != "cuda":
-        return None, None
+        return None
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         _sync(device)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and "mem" not in e.name.lower()]
-    if not kernels:
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "mem" not in e.name.lower()] or None
+
+
+def count_kernel_launches(fn, device):
+    """(kernels launched on the card, their summed device ms) of one call of
+    `fn`; (None, None) where `_device_kernels` gives None."""
+    kernels = _device_kernels(fn, device)
+    if kernels is None:
         return None, None
-    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return len(kernels), sum(ms for _, ms in kernels)
 
 
 def _edgeconv_train_ms(device, B, N, K, iters=5, seed=0):
@@ -635,10 +673,11 @@ def _rel_l2(a, b):
     return (num / den) ** 0.5, worst
 
 
-def _gate_card_vs_cpu(device, cfg, knn, batch_np, seed):
+def _gate_card_vs_cpu(device, cfg, knn, batch_np, seed, tag="train", gate="gate 2"):
     """Gate 2: one forward + backward of the train loss from the same
     weights in f32 (TF32 off) on `device` and on the CPU, and in f64 on the
-    CPU as the reference both are measured against."""
+    CPU as the reference both are measured against. `knn` is a static graph
+    or a stacked table (then batch_np carries obj_idx)."""
     from checkerpose_tpu_torch.models.layers import init_params
     from checkerpose_tpu_torch.models.posenet import PoseNet, knn_tensor
     from checkerpose_tpu_torch.train import steps
@@ -672,7 +711,7 @@ def _gate_card_vs_cpu(device, cfg, knn, batch_np, seed):
            "grad_rel_l2_card32_vs_cpu32": card_vs_cpu, "grad_worst_leaf_max_rel": leaf_err,
            "grad_worst_leaf": leaf_name, "running_stat_max_rel_err": stat_err}
     vs_64_bar = GRAD_VS_F64_FACTOR * cpu_vs_64 + GRAD_VS_F64_SLACK
-    say(f"[train] gate 2, card vs CPU, f32, batch {len(batch_np['image'])}: loss {loss_d:.6f} vs "
+    say(f"[{tag}] {gate}, card vs CPU, f32, batch {len(batch_np['image'])}: loss {loss_d:.6f} vs "
         f"{loss_c:.6f} (rel {loss_rel:.2e}, bar 1e-4); all gradient leaves, relative L2: "
         f"card f32 to CPU f64 {card_vs_64:.2e} (bar {vs_64_bar:.2e} = "
         f"{GRAD_VS_F64_FACTOR:g} x the CPU f32's own {cpu_vs_64:.2e} + {GRAD_VS_F64_SLACK:g}), "
@@ -681,7 +720,7 @@ def _gate_card_vs_cpu(device, cfg, knn, batch_np, seed):
         f"statistics max |err| / (1 + |ref|) {stat_err:.2e} (bar {STAT_TOL:g})")
     if loss_rel > 1e-4 or card_vs_64 > vs_64_bar or card_vs_cpu > GRAD_GLOBAL_TOL \
             or leaf_err > GRAD_LEAF_TOL or stat_err > STAT_TOL:
-        raise AssertionError(f"gate 2: the card's train step disagrees with the CPU's: {res}")
+        raise AssertionError(f"{gate}: the card's train step disagrees with the CPU's: {res}")
     return res
 
 
@@ -1443,44 +1482,53 @@ def _wrapped(owner, name, wrap):
 
 def _run_cli(device, main, cfg, eval_owner, eval_name, timed_owner):
     """One CLI run, counted from 0: its printed lines, returned value, and
-    per eval the EdgeConv launches by route, forward batches, folds per
+    per eval the EdgeConv launches by route and calls of the per-sample
+    path, forward batches, the objects (obj_idx) they held, folds per
     EdgeConv, the report, its start and the seconds (the card synchronised);
     the host seconds inside run_training, the host clock at the entry of
-    every training step and the peak device memory."""
+    every training step, the objects of each training batch and the peak
+    device memory."""
     from contextlib import redirect_stdout
-    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+    from checkerpose_tpu_torch.ops.edgeconv import (edgeconv_eval_per_sample, edgeconv_fused,
+                                                    reset_launch_counts)
 
-    evals, loop_s, stamps = [], [], []
+    evals, loop_s, stamps, step_objects = [], [], [], []
 
     def count_eval(orig):
         def wrapped(net, knn, variables_or_loader, *a, **k):
             # evaluate_init(net, knn, loader, ...) / evaluate_pipeline(net, knn, loader, ...)
-            batches = []
+            batches, objects = [], set()
 
             def counted(loader):
                 for b in loader:
                     batches.append(1)
+                    n_real = int(b.get("n_real", len(b["image"])))
+                    objects.update(np.unique(b["obj_idx"][:n_real]).tolist())
                     yield b
             convs = _edgeconvs(net)
             folds = [m.folds for m in convs]
             before = dict(edgeconv_fused.launches_by_route)
+            per_sample = edgeconv_eval_per_sample.calls
             _sync(device)
             t0 = time.perf_counter()
             rep = orig(net, knn, counted(variables_or_loader), *a, **k)
             _sync(device)
             evals.append({"start": t0, "seconds": time.perf_counter() - t0,
-                          "batches": len(batches),
+                          "batches": len(batches), "objects": sorted(objects),
                           "launches": {r: edgeconv_fused.launches_by_route[r] - before[r]
                                        for r in before},
+                          "per_sample": edgeconv_eval_per_sample.calls - per_sample,
                           "folds": [m.folds - f for m, f in zip(convs, folds)],
                           "report": rep})
             return rep
         return wrapped
 
     def stamped(step):
-        def wrapped(*a, **k):
+        def wrapped(state, batch, *a, **k):
             stamps.append(time.perf_counter())
-            return step(*a, **k)
+            if "obj_idx" in batch:
+                step_objects.append(len(torch.unique(batch["obj_idx"])))
+            return step(state, batch, *a, **k)
         return wrapped
 
     def timed_loop(orig):
@@ -1499,14 +1547,17 @@ def _run_cli(device, main, cfg, eval_owner, eval_name, timed_owner):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    with _wrapped(eval_owner, eval_name, count_eval), \
-            _wrapped(timed_owner, "run_training", timed_loop), redirect_stdout(tee):
+    from contextlib import nullcontext
+    timed = _wrapped(timed_owner, "run_training", timed_loop) if timed_owner else nullcontext()
+    with _wrapped(eval_owner, eval_name, count_eval), timed, redirect_stdout(tee):
         out = main(cfg)
     _sync(device)
     launches = dict(edgeconv_fused.launches_by_route)
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else None
-    return {"lines": tee.lines(), "out": out, "evals": evals, "loop_s": loop_s[0],
-            "stamps": stamps, "launches": launches, "peak_mem_gib": peak}
+    return {"lines": tee.lines(), "out": out, "evals": evals,
+            "loop_s": loop_s[0] if loop_s else None, "stamps": stamps,
+            "step_objects": step_objects, "launches": launches,
+            "per_sample": edgeconv_eval_per_sample.calls, "peak_mem_gib": peak}
 
 
 def _logged_losses(lines):
@@ -1954,13 +2005,581 @@ def phase_workflow(device, root=None, n_test=64, n_train=128, n_scenes=2, batch=
     return res
 
 
+LM_PRETRAIN_CFG = "config/synth/init_gnn2_hrnetw18_npt512_synthlm.txt"
+LM_TRAIN_CFG = "config/synth/hr18GNN2_res6_gnn3Skip_mlpQuery_synthlm.txt"
+WOPROG = "vanilla_GNNskip_ABwoProg"
+# gate (c): the per-sample path against the tensor-core kernel. The kernel
+# rounds only its output to bf16; the per-sample path (the JAX package's XLA
+# arithmetic) also rounds y = x W1, z = x (W2 - W1) and y_j + z_i to bf16
+# before BatchNorm, so its error follows |s| (|y_j| + |z_i|), which exceeds
+# |out| where the two cancel: the bar is 1e-3 + 2^-7 (|ref| + |s| max_k
+# (|y_j| + |z_i|)). The share of entries over 1e-3 + 2^-7 |ref| alone is
+# recorded beside it.
+LM_PATH_ATOL, LM_PATH_RTOL = 1e-3, 2.0 ** -7
+_MATMUL_KERNELS = ("gemm", "nvjet", "cutlass", "xmma")
+
+
+def make_lm_imgn_tree(ds_dir, out_dir, obj_names, n_per_obj=16, n_backgrounds=2, seed=0,
+                      size=(480, 640)):
+    """An lm_imgn tree for the fixture's objects, written with the port's own
+    PNG codec (no image library): per object `n_per_obj` renders of its mesh
+    under random poses, each a colour PNG (the object shaded by depth on
+    black), a 16-bit depth PNG in mm and a pose.txt with t in metres; and
+    `n_backgrounds` colour PNGs of textured noise. Returns (imgn root,
+    background dir)."""
+    from checkerpose_tpu_torch.data.imageio import write_depth_png, write_rgb_png
+    from checkerpose_tpu_torch.data.lm_imgn import K_LM
+    from checkerpose_tpu_torch.data.ply import load_ply_mesh
+    from checkerpose_tpu_torch.eval.renderer import render_depth
+
+    rng = np.random.default_rng(seed)
+    H, W = size
+    out_dir = Path(out_dir)
+    for obj_id, name in enumerate(obj_names, 1):
+        verts, faces = load_ply_mesh(str(Path(ds_dir) / "models" / f"obj_{obj_id:06d}.ply"))
+        obj_dir = out_dir / "imgn" / name
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        base = rng.uniform(70.0, 220.0, 3)
+        for i in range(n_per_obj):
+            Q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+            R = Q * np.sign(np.linalg.det(Q))
+            t = np.array([rng.uniform(-50, 50), rng.uniform(-40, 40), rng.uniform(380, 520)])
+            depth = render_depth(verts, faces, R, t, K_LM, W, H)
+            fg = depth > 0
+            img = np.zeros((H, W, 3), np.uint8)
+            near, far = depth[fg].min(), depth[fg].max()
+            shade = 1.3 - 0.6 * (depth[fg] - near) / max(far - near, 1e-6)
+            ys, xs = np.nonzero(fg)
+            checker = 0.85 + 0.3 * (((ys // 6) + (xs // 6)) % 2)
+            img[fg] = np.clip(base[None] * (shade * checker)[:, None], 0, 255).astype(np.uint8)
+            write_rgb_png(str(obj_dir / f"{i:06d}-color.png"), img)
+            write_depth_png(str(obj_dir / f"{i:06d}-depth.png"),
+                            np.clip(np.rint(depth), 0, 65535).astype(np.uint16))
+            with open(obj_dir / f"{i:06d}-pose.txt", "w") as f:
+                f.write("pose\n")
+                np.savetxt(f, np.hstack([R, t[:, None] / 1000.0]))
+    bg_dir = out_dir / "backgrounds"
+    bg_dir.mkdir(parents=True, exist_ok=True)
+    for k in range(n_backgrounds):
+        coarse = rng.integers(0, 256, (H // 16 + 1, W // 16 + 1, 3)).astype(np.float64)
+        bg = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:H // 2, :W // 2]
+        bg += rng.normal(0.0, 12.0, bg.shape)
+        write_rgb_png(str(bg_dir / f"bg_{k:02d}.png"), np.clip(bg, 0, 255).astype(np.uint8))
+    return str(out_dir), str(bg_dir)
+
+
+def _gate_lm_launches(run, per_batch, what):
+    """Every eval of an LM CLI run took the per-sample path `per_batch`
+    times a forward batch and launched neither kernel, and so did the whole
+    run (training steps take the per-sample train path, which counts
+    nothing). Returns the run's {"tc", "fma", "per_sample"}."""
+    none = {"tc": 0, "fma": 0}
+    for i, ev in enumerate(run["evals"]):
+        if ev["launches"] != none or ev["per_sample"] != per_batch * ev["batches"]:
+            raise AssertionError(f"{what}: eval {i} launched {ev['launches']} and took the "
+                                 f"per-sample path {ev['per_sample']} times for "
+                                 f"{ev['batches']} batches, expected {none} and "
+                                 f"{per_batch} a batch")
+    if run["launches"] != none:
+        raise AssertionError(f"{what}: the run launched {run['launches']}, expected {none}")
+    return dict(run["launches"], per_sample=run["per_sample"])
+
+
+def _per_eval_fn(run, n_obj, what):
+    """The run's evals (one a sweep of an object) grouped by eval_fn call:
+    each group must hold objects 0..n_obj-1 in order. Returns the groups'
+    seconds."""
+    evs = run["evals"]
+    if not evs or len(evs) % n_obj:
+        raise AssertionError(f"{what}: {len(evs)} object sweeps for {n_obj} objects an eval")
+    groups = [evs[i:i + n_obj] for i in range(0, len(evs), n_obj)]
+    for g in groups:
+        if [e["objects"] for e in g] != [[o] for o in range(n_obj)]:
+            raise AssertionError(f"{what}: an eval swept objects {[e['objects'] for e in g]}")
+    return [sum(e["seconds"] for e in g) for g in groups]
+
+
+def _eval_lines(lines):
+    """(per-object adx10 dicts, gate scores) of an LM train CLI's output."""
+    import ast
+    adx = [ast.literal_eval(ln.split(":", 1)[1].strip()) for ln in lines
+           if ln.startswith("per-object adx10:")]
+    gates = [float(w.split("=", 1)[1]) for ln in lines if ln.startswith("eval @")
+             for w in ln.split() if w.startswith("gate_score=")]
+    return adx, gates
+
+
+def _lm_report_gate(path, n_obj, what):
+    """Gate (e) on report_lm_*.json: per_object for n_obj objects and the
+    average; rates and seg IoU in [0, 1], bit errors in [0, 1], the rest
+    finite except where the harness defines the value otherwise: auc_posecnn
+    is NaN when no estimate lies within 0.1 m, mean_te_mm inf when no pose
+    was solved (both the reference's definitions). Returns the report."""
+    with open(path) as f:
+        rep = json.load(f)
+    per, avg = rep.get("per_object", {}), rep.get("average", {})
+    if len(per) != n_obj or set(avg) != set(next(iter(per.values()))):
+        raise AssertionError(f"{what}: per_object {sorted(per)}, average keys {sorted(avg)}")
+    for name, row in [*per.items(), ("average", avg)]:
+        for k, v in row.items():
+            if k in EVAL_RATE_KEYS or k == "seg_iou":
+                ok = 0.0 <= v <= 1.0
+            elif k == "auc_posecnn":
+                ok = np.isnan(v) or 0.0 <= v <= 1.0
+            elif k == "mean_te_mm":
+                ok = v == np.inf or np.isfinite(v)
+            else:
+                ok = bool(np.isfinite(v))
+            if not ok:
+                raise AssertionError(f"{what}: {name} {k} = {v}")
+    be = np.asarray(rep["bit_err"])
+    if len(rep["bit_err_per_object"]) != n_obj or not ((be >= 0) & (be <= 1)).all():
+        raise AssertionError(f"{what}: bit_err {rep['bit_err']}")
+    return rep
+
+
+def _split_ms(kernels):
+    """(total ms, the matmuls' ms, the rest) of `_device_kernels`' list."""
+    if kernels is None:
+        return None, None, None
+    mm = sum(ms for name, ms in kernels if any(t in name.lower() for t in _MATMUL_KERNELS))
+    total = sum(ms for _, ms in kernels)
+    return total, mm, total - mm
+
+
+def _edgeconv_inputs_of(net, fn):
+    """Run fn() once with a forward pre-hook on every EdgeConv of `net`:
+    [(module, x, knn)] in call order."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen.append((mod, *args)))
+             for m in _edgeconvs(net)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def _lm_edgeconv_profile(device, net, knn_stack, step, state, batch, gen):
+    """On one batch of mixed objects, device ms from torch.profiler: (1) one
+    warm LM train step, and its per-sample EdgeConvs alone (forward +
+    backward on the inputs they got in that step, on copies of the
+    modules); (2) one LM eval forward, and its per-sample EdgeConvs alone;
+    each set of EdgeConv calls profiled in one window and split into the
+    projections' matmuls and the rest (gather, BatchNorm, max, and in the
+    step the scatter-add). By CUDA events
+    (mean of 5 after 2 warm calls): (3) the same eval EdgeConvs, and the same
+    inputs through the tensor-core kernel on a static graph (knn_stack[0]),
+    the single-object eval forward's EdgeConvs (on the H100 torch.profiler
+    has returned no device event for some short windows); a time the
+    profiler did not record is None."""
+    import copy
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused
+    from checkerpose_tpu_torch.train import steps
+
+    net.train()
+    step(state, batch, gen)                              # warm
+    _sync(device)
+    step_ms = _split_ms(_device_kernels(lambda: step(state, batch, gen), device))[0]
+    captured = _edgeconv_inputs_of(net, lambda: step(state, batch, gen))
+    train_calls = []
+    for mod, x, kn in captured:
+        m2 = copy.deepcopy(mod).train()
+        xd = x.detach().requires_grad_(True)
+        g = torch.randn(x.shape[0], x.shape[1], m2.conv.weight.shape[0], device=device,
+                        dtype=m2.dtype)
+
+        def fwd_bwd(m2=m2, xd=xd, kn=kn, g=g):
+            m2(xd, kn).backward(g)
+        fwd_bwd()                                        # warm
+        train_calls.append(fwd_bwd)
+    n_conv = len(captured)
+    train_ec = _split_ms(_device_kernels(lambda: [f() for f in train_calls], device))
+
+    net.eval()
+    fwd = steps.make_pose_forward(net, knn_stack, net.num_refine_steps)
+    fwd(batch)
+    _sync(device)
+    fwd_ms = _split_ms(_device_kernels(lambda: fwd(batch), device))[0]
+    captured = _edgeconv_inputs_of(net, lambda: fwd(batch))
+    static = knn_stack[0].contiguous()
+    eval_calls, tc_calls = [], []
+    for mod, x, kn in captured:
+        args = mod.fused_args()
+        xs = x.to(mod.dtype).contiguous()
+        eval_calls.append(lambda m=mod, x=x, kn=kn: m(x, kn))
+        tc_calls.append(lambda xs=xs, args=args, m=mod: edgeconv_fused(
+            xs, static, *args[:4], m.leaky_slope, packed=args[4]))
+    with torch.no_grad():
+        eval_ec = _split_ms(_device_kernels(lambda: [c() for c in eval_calls], device))
+        eval_event = time_ms(lambda: [c() for c in eval_calls], device, iters=5)
+        tc_event = time_ms(lambda: [c() for c in tc_calls], device, iters=5)
+
+    res = {"edgeconvs": n_conv, "train_step_device_ms": step_ms,
+           "train_edgeconv_ms": train_ec[0], "train_edgeconv_matmul_ms": train_ec[1],
+           "train_edgeconv_rest_ms": train_ec[2], "eval_forward_device_ms": fwd_ms,
+           "eval_edgeconv_ms": eval_ec[0], "eval_edgeconv_matmul_ms": eval_ec[1],
+           "eval_edgeconv_rest_ms": eval_ec[2], "eval_edgeconv_event_ms": eval_event,
+           "eval_tc_static_event_ms": tc_event, "batch": int(batch["image"].shape[0])}
+    if step_ms and train_ec[0] is not None:
+        res["train_edgeconv_share"] = train_ec[0] / step_ms
+    if fwd_ms and eval_ec[0] is not None:
+        res["eval_edgeconv_share"] = eval_ec[0] / fwd_ms
+    return res
+
+
+def _gate_lm_paths(device, net, knn_stack, batch):
+    """Gate (c): the EdgeConv inputs of one eval batch with mixed obj_idx at
+    the init net's width (C=64) and a refine stage's (C=256), through the
+    per-sample eval path with knn_stack[obj_idx] and through the tensor-core
+    kernel launched once per object on its rows with the static
+    knn_stack[o]; ref the per-sample path, bar as LM_PATH_* says."""
+    from checkerpose_tpu_torch.ops.edgeconv import (edgeconv_eval_per_sample, edgeconv_fused,
+                                                    gather_neighbors)
+    from checkerpose_tpu_torch.train import steps
+    net.eval()
+    init = net.init_net.graph_0
+    refine = next(m for m in _edgeconvs(net) if m not in set(_edgeconvs(net.init_net)))
+    wanted = {init, refine}
+    fwd = steps.make_pose_forward(net, knn_stack, net.num_refine_steps)
+    seen = {mod: (x, kn) for mod, x, kn in _edgeconv_inputs_of(net, lambda: fwd(batch))
+            if mod in wanted}
+    obj_idx = batch["obj_idx"].long()
+    res = {"objects": sorted(torch.unique(obj_idx).tolist())}
+    if len(res["objects"]) < 2:
+        raise AssertionError(f"gate (c): the batch holds objects {res['objects']}")
+    with torch.no_grad():
+        for mod in (init, refine):
+            x, kn = seen[mod]
+            x = x.to(mod.dtype).contiguous()
+            if not torch.equal(kn, knn_stack[obj_idx]):
+                raise AssertionError("gate (c): the forward's graph is not knn_stack[obj_idx]")
+            w1, w2m1 = mod.split_weights()
+            ref = edgeconv_eval_per_sample(x, kn, w1, w2m1, mod.bn, mod.leaky_slope).float()
+            fw1, fw2m1, scale, bias, packed = mod.fused_args()
+            out = torch.empty_like(ref)
+            for o in res["objects"]:
+                rows = (obj_idx == o).nonzero().flatten()
+                out[rows] = edgeconv_fused(x[rows].contiguous(), knn_stack[o].contiguous(), fw1,
+                                           fw2m1, scale, bias, mod.leaky_slope,
+                                           packed=packed).float()
+            xf = x.float()
+            y, z = xf @ w1.float(), xf @ w2m1.float()
+            terms = (gather_neighbors(y, kn).abs() + z.abs()[:, :, None]).amax(2)
+            err = (out - ref).abs()
+            bar = LM_PATH_ATOL + LM_PATH_RTOL * (ref.abs() + scale.abs() * terms)
+            c = x.shape[-1]
+            res[c] = {"shape": list(x.shape), "max_abs_err": float(err.max()),
+                      "max_err_over_bar": float((err / bar).max()),
+                      "share_over_out_only_bar": float(
+                          (err > LM_PATH_ATOL + LM_PATH_RTOL * ref.abs()).float().mean())}
+            if not bool((err <= bar).all()):
+                raise AssertionError(f"gate (c): the per-sample path and the kernel disagree "
+                                     f"at C={c}: {res[c]}")
+    return res
+
+
+def phase_lm(device, root=None, n_objects=4, n_test=32, n_train=128, n_scenes=2,
+             n_imgn=16, batch=64, n_vertices=2048, iters=20, test_freq=10, log_freq=5,
+             resume_to=30, woprog_iters=4, cfg_overrides=None, pretrain_overrides=None,
+             ref_batch=2, single_object_train=None, seed=0):
+    """The LM multi-object workflow through the CLIs' `main` functions on a
+    fixture the port generates: pretrain_lm, train_lm (and resume),
+    test_lm hard and adaptive, the woProg ablation; gates (a)-(e) raise.
+    `single_object_train`: phase workflow's train CLI result, for the ratio
+    of the two CLIs' iteration times."""
+    import shutil
+    from checkerpose_tpu_torch.cli import common, pretrain_lm as cli_pre
+    from checkerpose_tpu_torch.cli import test_lm as cli_test, train_lm as cli_train
+    from checkerpose_tpu_torch.data.bop_io import scan_bop_object
+    from checkerpose_tpu_torch.data.dataset import CropDataset
+    from checkerpose_tpu_torch.data.synthetic import make_synthetic_bop
+    from checkerpose_tpu_torch.eval.harness import DEFAULT_TAU_GRID
+    from checkerpose_tpu_torch.models.posenet import knn_tensor
+    from checkerpose_tpu_torch.train import steps
+    from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
+
+    on_card = device.type == "cuda"
+    root = Path(root) if root is not None else ROOT / "build" / "lm_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    data = str(root / "data")
+    t0 = time.perf_counter()
+    ds_dir = make_synthetic_bop(data, n_objects=n_objects, n_scenes=n_scenes,
+                                folders={"test": n_test, "train_real": n_train},
+                                n_vertices=n_vertices, raw_cache=True, write_png=False, seed=seed)
+    names = [f"obj{i:02d}" for i in range(1, n_objects + 1)]      # the synth dataset's
+    imgn_root, bg_root = make_lm_imgn_tree(ds_dir, root / "lm_imgn", names, n_imgn, seed=seed)
+    res = {"fixture": {"objects": n_objects, "test_images": n_scenes * n_test,
+                       "train_real_images": n_scenes * n_train, "imgn_renders": n_objects * n_imgn,
+                       "backgrounds": 2, "vertices": n_vertices,
+                       "seconds": time.perf_counter() - t0 if on_card else None}}
+    say(f"[lm] fixture: {n_objects} objects of {n_vertices} vertices, {n_scenes} x {n_test} "
+        f"test + {n_scenes} x {n_train} train_real images (frame cache only), "
+        f"{n_objects} x {n_imgn} lm_imgn renders and 2 backgrounds as PNGs by the port's own "
+        f"codec, {res['fixture']['seconds']} s on the host")
+    over = dict(bop_path=data, tensorboard_path=str(root / "tb"), log_freq=log_freq,
+                device=device.type, obj_names=",".join(names), training_data_folder_2="lm_imgn",
+                lm_imgn_root=imgn_root, background_root=bg_root, change_bg_prob=0.5)
+
+    # --- (a) pretrain_lm -------------------------------------------------------------------
+    pcfg = common.resolve_cfg_lm(str(ROOT / LM_PRETRAIN_CFG), dict(
+        pretrain_overrides or {}, **over, check_point_path=str(root / "ckpt_pre"),
+        total_iteration=iters, test_freq=test_freq))
+    pcfg.pop("backbone_pretrain_checkpoint", None)   # overrides cannot unset a key
+    run = _run_cli(device, cli_pre.main, pcfg, cli_pre, "evaluate_init", cli_pre)
+    losses = _logged_losses(run["lines"])
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"gate (a): logged pretrain_lm losses {losses}")
+    pre_dir = Path(pcfg["check_point_path"])
+    kept = sorted(int(d.name) for d in pre_dir.iterdir() if (d / "state.pt").is_file())
+    want_kept = sorted({*range(test_freq, iters + 1, test_freq), iters})
+    if pre_dir != root / "ckpt_pre" / Path(LM_PRETRAIN_CFG).stem / "lm13" or kept != want_kept:
+        raise AssertionError(f"gate (a): checkpoints {kept} under {pre_dir}")
+    pre_eval_s = _per_eval_fn(run, n_objects, "gate (a)")
+    pre_convs = len(_edgeconvs(run["out"].module))
+    if pretrain_overrides is None and pre_convs != INIT_EDGECONVS:
+        raise AssertionError(f"gate (a): the init net has {pre_convs} EdgeConvs")
+    pre_launches = _gate_lm_launches(run, pre_convs, "gate (a)")
+    res["pretrain_lm"] = {
+        "iterations": iters, "logged_losses": losses, "checkpoints": kept,
+        "evals": len(pre_eval_s), "eval_fn_s": pre_eval_s if on_card else None,
+        "ms_per_iter": _ms_per_iter(run, iters) if on_card else None,
+        "peak_mem_gib": run["peak_mem_gib"], "launches": pre_launches,
+        "mixed_batches": sum(n >= 2 for n in run["step_objects"])}
+    say(f"[lm] (a) cli.pretrain_lm.main, {iters} iterations at batch {pcfg['batch_size']} "
+        f"over {n_objects} objects, eval every {test_freq}: host ms an iteration without the "
+        f"evals {res['pretrain_lm']['ms_per_iter']}; eval_fn {res['pretrain_lm']['eval_fn_s']} s "
+        f"({n_objects} object sweeps each); launches {pre_launches} (per-sample path "
+        f"{pre_convs} a forward batch); losses finite ({losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}); checkpoints {kept} under {pre_dir}; peak {run['peak_mem_gib']} GiB")
+
+    # --- (b) train_lm and resume -----------------------------------------------------------
+    tcfg = common.resolve_cfg_lm(str(ROOT / LM_TRAIN_CFG), dict(
+        cfg_overrides or {}, **over, check_point_path=str(root / "ckpt_train"),
+        Detection_reaults=f"{data}/detection_results/synth/synth_detections.json",
+        init_pretrained_root=str(pre_dir.parent), total_iteration=iters, test_freq=test_freq))
+    at_step0, swaps = {}, {"syn": 0, "real": 0}
+
+    def capture_init(orig):
+        def wrapped(net, *a, **k):
+            state = orig(net, *a, **k)
+            if not at_step0:
+                at_step0.update({k_: v.detach().cpu().clone()
+                                 for k_, v in net.init_net.state_dict().items()})
+            return state
+        return wrapped
+
+    def count_swaps(orig):
+        def wrapped(ds, *a):
+            swaps["syn" if ds.samples[0].img_type == "syn" else "real"] += 1
+            return orig(ds, *a)
+        return wrapped
+
+    with _wrapped(cli_train, "create_pose_state", capture_init), \
+            _wrapped(CropDataset, "_replace_bg", count_swaps):
+        trun = _run_cli(device, cli_train.main, tcfg, cli_train, "evaluate_pipeline", cli_train)
+    init_src = CheckpointManager(str(pre_dir)).restore_raw()["model"]
+    loaded = [k for k, v in init_src.items() if k in at_step0 and at_step0[k].shape == v.shape]
+    differ = [k for k in loaded if not torch.equal(at_step0[k], init_src[k])]
+    said = [ln for ln in trun["lines"] if ln.startswith("loaded pretrained init net")]
+    if not said or f"(step {iters})" not in said[0] or not loaded or differ:
+        raise AssertionError(f"gate (b): init line {said}; {len(differ)} of {len(loaded)} "
+                             f"init_net entries differ from the pretrain checkpoint")
+    losses = _logged_losses(trun["lines"])
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"gate (b): logged train_lm losses {losses}")
+    adx, gates = _eval_lines(trun["lines"])
+    n_evals = len(want_kept)
+    if len(adx) != n_evals or any(sorted(a) != names for a in adx) \
+            or len(gates) != n_evals or not all(0.0 <= g <= 1.0 for g in gates):
+        raise AssertionError(f"gate (b): per-object adx10 {adx}, gate scores {gates}")
+    train_eval_s = _per_eval_fn(trun, n_objects, "gate (b)")
+    n_conv = len(_edgeconvs(trun["out"].module))
+    if cfg_overrides is None and n_conv != EDGECONV_PER_FORWARD:
+        raise AssertionError(f"gate (b): the network has {n_conv} EdgeConvs")
+    train_launches = _gate_lm_launches(trun, n_conv, "gate (b)")
+    if max(trun["step_objects"], default=0) < 2:
+        raise AssertionError(f"gate (b): no training batch mixed two objects "
+                             f"({trun['step_objects']})")
+    if swaps["syn"] == 0:
+        raise AssertionError(f"gate (b): the background swap ran {swaps} times")
+    rrun = _run_cli(device, cli_train.main, dict(tcfg, load_checkpoint=True,
+                                                 total_iteration=resume_to),
+                    cli_train, "evaluate_pipeline", cli_train)
+    if f"resumed from step {iters}" not in rrun["lines"] or rrun["out"].step != resume_to:
+        raise AssertionError(f"gate (b): the resumed run ended at step {rrun['out'].step}")
+    resume_launches = _gate_lm_launches(rrun, n_conv, "gate (b), resumed")
+    r_losses = _logged_losses(rrun["lines"])
+    if not np.isfinite(r_losses).all():
+        raise AssertionError(f"gate (b): logged losses of the resumed run {r_losses}")
+    ms = _ms_per_iter(trun, iters) if on_card else None
+    so = (single_object_train or {}).get("ms_per_iter") or {}
+    ratio = (ms["median_later"] / so["median_later"]
+             if ms and so.get("median_later") else None)
+    res["train_lm"] = {
+        "iterations": iters, "resumed_to": resume_to, "init_entries_grafted": len(loaded),
+        "logged_losses": losses + r_losses, "per_object_adx10": adx, "gate_scores": gates,
+        "eval_fn_s": (train_eval_s + _per_eval_fn(rrun, n_objects, "gate (b), resumed")
+                      if on_card else None),
+        "ms_per_iter": ms,
+        "ms_per_iter_resumed": _ms_per_iter(rrun, resume_to - iters) if on_card else None,
+        "single_object_train_median_ms": so.get("median_later"),
+        "median_ratio_to_single_object": ratio,
+        "peak_mem_gib": trun["peak_mem_gib"], "launches": train_launches,
+        "launches_resumed": resume_launches, "most_objects_in_a_batch": max(trun["step_objects"]),
+        "background_swaps": swaps}
+    say(f"[lm] (b) cli.train_lm.main, {iters} iterations at batch {tcfg['batch_size']} from "
+        f"'{said[0]}' ({len(loaded)} init_net entries equal the checkpoint's at step 0), eval "
+        f"every {test_freq}: host ms an iteration without the evals {ms}; single-object train "
+        f"CLI median {so.get('median_later')} ms, ratio {ratio}; eval_fn "
+        f"{res['train_lm']['eval_fn_s']} s; launches {train_launches} (per-sample path "
+        f"{n_conv} a forward batch); per-object adx10 {adx}; gate scores "
+        f"{gates}; up to {max(trun['step_objects'])} objects in a training batch; background "
+        f"swaps {swaps}; peak {trun['peak_mem_gib']} GiB; resumed from step {iters} to "
+        f"{resume_to}: host ms an iteration {res['train_lm']['ms_per_iter_resumed']}, "
+        f"launches {resume_launches}")
+
+    # --- (e) test_lm, hard and adaptive --------------------------------------------------------
+    out_dir = root / "out"
+    qcfg = dict(tcfg, ckpt_dir=tcfg["check_point_path"], eval_output_path=str(out_dir),
+                test_batch_size=batch, adx_type="visib")
+    report_path = out_dir / f"report_lm_{tcfg['config_file_name']}.json"
+    tests = {}
+    for mode, extra in (("hard", dict(decode_mode="hard")),
+                        ("adaptive", dict(decode_mode="adaptive", decode_tau_auto=True))):
+        qrun = _run_cli(device, cli_test.main, dict(qcfg, **extra), cli_test,
+                        "evaluate_pipeline", None)
+        rep = _lm_report_gate(report_path, n_objects, f"gate (e), {mode}")
+        if len(qrun["evals"]) != n_objects or [e["objects"] for e in qrun["evals"]] \
+                != [[o] for o in range(n_objects)]:
+            raise AssertionError(f"gate (e), {mode}: object sweeps "
+                                 f"{[e['objects'] for e in qrun['evals']]}")
+        if mode == "adaptive" and (rep.get("decode_conf_tau") not in DEFAULT_TAU_GRID
+                                   or "tau_sweep" not in rep):
+            raise AssertionError(f"gate (e): adaptive tau {rep.get('decode_conf_tau')}")
+        tests[mode] = {"launches": _gate_lm_launches(qrun, n_conv, f"gate (e), {mode}"),
+                       "s_per_object": ([e["seconds"] for e in qrun["evals"]]
+                                        if on_card else None),
+                       "average": rep["average"], "decode_conf_tau": rep.get("decode_conf_tau"),
+                       "bit_err": rep["bit_err"]}
+        say(f"[lm] (e) cli.test_lm.main, {mode}, adx_type visib: {n_objects} objects, s per "
+            f"object {tests[mode]['s_per_object']}; launches {tests[mode]['launches']}; "
+            f"tau {rep.get('decode_conf_tau')}; average {rep['average']}")
+    res["test_lm"] = tests
+
+    # --- (c) the per-sample path against the kernel ------------------------------------------
+    net = rrun["out"].module
+    p3d_table, p3dn_stack, knn_np = common.load_keypoints_lm(tcfg)
+    knn_stack = knn_tensor(knn_np, knn_np.shape[1], device)
+    test_samples = [s for o in sorted(tcfg["obj_ids"])
+                    for s in scan_bop_object(data, "synth", "test", o, 0.1)]
+    mix_ds = CropDataset(test_samples, p3d_table, is_train=False, crop_size_gt=64,
+                         frame_cache=common._frame_cache(tcfg))
+    order = np.random.default_rng(seed).permutation(len(mix_ds))[:batch]
+    mixed = common.attach_p3d(_stack_items([mix_ds[int(i)] for i in order]), p3dn_stack)
+    mixed_t = _on(device, mixed)
+    res["paths"] = _gate_lm_paths(device, net, knn_stack, mixed_t)
+    say(f"[lm] (c) per-sample eval path vs the tensor-core kernel launched per object on a "
+        f"static graph, one eval batch of the trained net with objects "
+        f"{res['paths']['objects']}: "
+        + "; ".join(f"C={c} {v['shape']} max |err| {v['max_abs_err']:.4g}, at most "
+                    f"{v['max_err_over_bar']:.3f} of the bar, {v['share_over_out_only_bar']:.4f} "
+                    f"of entries over 1e-3 + 2^-7 |ref| alone"
+                    for c, v in res["paths"].items() if c != "objects")
+        + f" (bar {LM_PATH_ATOL:g} + 2^-7 (|ref| + |s| max_k (|y_j| + |z_i|)))")
+
+    # --- the per-sample EdgeConv's device time ------------------------------------------------
+    opts = cli_train.step_options(tcfg, resume_to, net.num_refine_steps)[net.num_refine_steps]
+    step = steps.make_train_step(net, knn_stack, net.num_refine_steps, **opts)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res["edgeconv_profile"] = _lm_edgeconv_profile(device, net, knn_stack, step, rrun["out"],
+                                                   mixed_t, gen)
+    p = res["edgeconv_profile"]
+    say(f"[lm] per-sample EdgeConv, torch.profiler device ms: one warm train step "
+        f"{p['train_step_device_ms']}, its {p['edgeconvs']} EdgeConvs forward + backward "
+        f"{p['train_edgeconv_ms']} (matmuls {p['train_edgeconv_matmul_ms']}, gather + BN + max "
+        f"+ scatter-add {p['train_edgeconv_rest_ms']}), share {p.get('train_edgeconv_share')}; "
+        f"one eval forward batch of {p['batch']} {p['eval_forward_device_ms']}, its "
+        f"EdgeConvs {p['eval_edgeconv_ms']} (matmuls {p['eval_edgeconv_matmul_ms']}, rest "
+        f"{p['eval_edgeconv_rest_ms']}), share {p.get('eval_edgeconv_share')}; CUDA events: "
+        f"the eval EdgeConvs {p['eval_edgeconv_event_ms']}, the same {p['edgeconvs']} inputs "
+        f"through the tensor-core kernel on a static graph {p['eval_tc_static_event_ms']}")
+
+    # --- (e) woProg ------------------------------------------------------------------------
+    wcfg = dict(tcfg, network_type=WOPROG, check_point_path=str(root / "ckpt_woprog"),
+                total_iteration=woprog_iters, test_freq=woprog_iters, log_freq=1)
+    ids = []
+
+    def record_ids(orig):
+        def wrapped(net_, knn, stage):
+            fwd = orig(net_, knn, stage)
+
+            def recorded(b):
+                out = fwd(b)
+                ids.append((int(out["x_id"].max()), int(out["y_id"].max()),
+                            tuple(out["x_logits"].shape)))
+                return out
+            return recorded
+        return wrapped
+
+    wrun = _run_cli(device, cli_train.main, wcfg, cli_train, "evaluate_pipeline", cli_train)
+    w_losses = _logged_losses(wrun["lines"])
+    if not w_losses or not np.isfinite(w_losses).all() \
+            or type(wrun["out"].module).__name__ != "PoseNetWoProg":
+        raise AssertionError(f"gate (e), woProg: {type(wrun['out'].module).__name__}, "
+                             f"losses {w_losses}")
+    w_conv = len(_edgeconvs(wrun["out"].module))
+    w_train = _gate_lm_launches(wrun, w_conv, "gate (e), woProg train")
+    wq = dict(wcfg, ckpt_dir=wcfg["check_point_path"], eval_output_path=str(root / "out_wo"),
+              test_batch_size=batch)
+    with _wrapped(steps, "make_pose_forward", record_ids):
+        wqrun = _run_cli(device, cli_test.main, wq, cli_test, "evaluate_pipeline", None)
+    w_path = root / "out_wo" / f"report_lm_{tcfg['config_file_name']}.json"
+    w_rep = _lm_report_gate(w_path, n_objects, "gate (e), woProg")
+    npoint = knn_np.shape[1]
+    if not ids or any(x >= 64 or y >= 64 or shape[1:] != (npoint, 6) for x, y, shape in ids):
+        raise AssertionError(f"gate (e), woProg: ids and logit shapes {ids}")
+    res["woprog"] = {"iterations": woprog_iters, "logged_losses": w_losses,
+                     "launches_train": w_train,
+                     "launches_test": _gate_lm_launches(wqrun, w_conv,
+                                                        "gate (e), woProg test"),
+                     "max_ids": [max(i[0] for i in ids), max(i[1] for i in ids)],
+                     "average": w_rep["average"]}
+    say(f"[lm] (e) woProg: cli.train_lm.main {woprog_iters} iterations (losses "
+        f"{w_losses}), cli.test_lm.main: x_id / y_id max {res['woprog']['max_ids']} (< 64 at "
+        f"stage 3), x_logits (B, {npoint}, 6); launches {res['woprog']['launches_test']}")
+
+    # --- (d) card against CPU, a multi-object train step ---------------------------------------
+    two = [next(i for i, sm in enumerate(mix_ds.samples) if sm.obj_id == o)
+           for o in sorted(tcfg["obj_ids"])[:ref_batch]]
+    small = _stack_items([mix_ds[int(i)] for i in two])
+    small = common.attach_p3d({k: small[k] for k in ("image", "proj_xy", "bbox", "mask_visib",
+                                                     "mask_full", "obj_idx")}, p3dn_stack)
+    net_cfg = dict(npoint=npoint, backbone_name=tcfg["init_network_backbone_name"],
+                   res_log2=int(tcfg["network_res_log2"]),
+                   num_graph_module=int(tcfg["network_num_graph_module"]),
+                   init_num_graph_module=int(tcfg.get("init_network_num_graph_module", 2)),
+                   local_k=int(tcfg.get("network_local_k", 2)))
+    res["card_vs_cpu"] = _gate_card_vs_cpu(device, net_cfg, knn_np, small, seed, tag="lm",
+                                           gate="(d)")
+    res["launches_by_path"] = {"lm_pretrain": pre_launches, "lm_train": train_launches,
+                               "lm_train_resumed": resume_launches,
+                               "lm_test_hard": tests["hard"]["launches"],
+                               "lm_test_adaptive": tests["adaptive"]["launches"],
+                               "lm_woprog_train": w_train,
+                               "lm_woprog_test": res["woprog"]["launches_test"]}
+    return res
+
+
 KERNELS = {
     "tc": dict(name="edgeconv_fused_tc", source="checkerpose_tpu_torch/csrc/edgeconv_tc.cu",
                dtype="bfloat16", phase="serving",
                path="bf16 serving forward (phase serving); also the eval forward of the "
                     "trained weights (phase train), every forward batch of the test "
                     "CLI (phase eval) and every eval batch of the pretrain and train "
-                    "CLIs (phase workflow)"),
+                    "CLIs (phase workflow); 0 on the LM paths (phase lm: a per-sample "
+                    "graph takes the plain per-sample path, as in the JAX package)"),
     "fma": dict(name="edgeconv_fused_fma", source="checkerpose_tpu_torch/csrc/edgeconv.cu",
                 dtype="float32", phase="reference",
                 path="f32 forward (phase reference); the bf16 serving path no longer "
@@ -2060,6 +2679,7 @@ def main(argv=None) -> int:
     train = phase_train(device, seed=args.seed, profile_dir=args.profile)
     evaluation = phase_eval(device, seed=args.seed)
     workflow = phase_workflow(device, seed=args.seed)
+    lm = phase_lm(device, seed=args.seed, single_object_train=workflow["train"])
 
     launches = {"tc": serving["edgeconv_launches_by_route"]["tc"],
                 "fma": reference["f32"]["edgeconv_launches_by_route"]["fma"]}
@@ -2068,10 +2688,14 @@ def main(argv=None) -> int:
     eval_rows = evaluation.pop("kernel_rows")
     print(json.dumps({"eval": evaluation, "card": card}))
     print(json.dumps({"workflow": workflow, "card": card}))
+    print(json.dumps({"lm": lm, "card": card}))
+    lm_paths = lm["launches_by_path"]
     print(json.dumps({"kernels": kernel_summary(
         rows, launches, train["eval_after_training"]["edgeconv_launches_by_route"],
         evaluation["hard"]["edgeconv_launches_by_route"], eval_rows,
-        workflow["launches_by_path"])}))
+        {**workflow["launches_by_path"], **lm_paths}),
+        "lm_path_launches": {k: sum(p[k] for p in lm_paths.values())
+                             for k in ("tc", "fma", "per_sample")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -81,16 +81,27 @@ def test_module_matches_flax_edgeconv():
 
 
 def test_module_refuses_train_and_per_sample_graph():
-    """Train mode runs (the per-node form with batch statistics); a
-    per-sample graph is refused in either mode."""
+    """Train mode runs (the per-node form with batch statistics). A
+    per-sample (B, N, K) graph runs in either mode (the multi-object
+    variant's plain path), equal to the static graph when every row is it,
+    and folds nothing; a per-sample graph of another batch size or a graph
+    of another rank is refused in either mode."""
     knn, x, *_ = _inputs(3)
     mod = EdgeConv(C, CP, dtype=torch.float32).train()
     xt, kt = torch.from_numpy(x), torch.from_numpy(knn)
     out = mod(xt, kt)
     assert out.shape == (B, N, CP) and out.requires_grad and mod.folds == 0
+    per_sample = kt[None].expand(B, N, K).contiguous()
     for m in (mod, mod.eval()):
+        with torch.no_grad():
+            got = m(xt, per_sample)
+            want = m(xt, kt)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
         with pytest.raises(ValueError):
-            m(xt, kt[None].expand(B, N, K).contiguous())
+            m(xt, per_sample[:1])
+        with pytest.raises(ValueError):
+            m(xt, per_sample[None])
+    assert mod.folds == 1                         # the static eval forward only
 
 
 def _bad_calls():

@@ -438,10 +438,14 @@ def test_finebit_bit_weights(cfg, step, bits):
 
 
 def test_unported_paths_point_to_the_roadmap():
+    """The NOCS step still points to the roadmap; the multi-object graph no
+    longer does: a stacked (O, N, K) table gives each sample its object's
+    rows (tests/test_torch_lm_multiobj.py holds the rest)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         steps.make_nocs_train_step(None, None, diameter=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.knn_for_batch(torch.zeros(2, NPT, KNN, dtype=torch.int32), {})
+    table = torch.arange(2 * NPT * KNN, dtype=torch.int32).view(2, NPT, KNN)
+    got = steps.knn_for_batch(table, {"obj_idx": torch.tensor([1, 1, 0])})
+    assert torch.equal(got, table[[1, 1, 0]])
     with pytest.raises(ValueError, match="bit_weights"):
         net = PoseNet(**CFG, dtype=torch.float32)
         steps.train_loss(net, None, None, {"proj_xy": torch.zeros(1, NPT, 2),

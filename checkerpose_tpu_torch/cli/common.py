@@ -72,7 +72,7 @@ def _frame_cache(cfg: Dict):
     return None
 
 
-def _crop_kw(cfg: Dict, crop_gt: int) -> Dict:
+def crop_kw(cfg: Dict, crop_gt: int) -> Dict:
     return dict(crop_size_img=int(cfg.get("BoundingBox_CropSize_image", 256)),
                 crop_size_gt=crop_gt,
                 padding_ratio=float(cfg.get("padding_ratio", 1.5)),
@@ -83,7 +83,7 @@ def _crop_kw(cfg: Dict, crop_gt: int) -> Dict:
 def build_train_loaders(cfg: Dict, xyz: np.ndarray, seed: int = 0):
     """Train loader (optionally mixing two folders at second_dataset_ratio)
     + a factory of the validation loader."""
-    common = _crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
+    common = crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
                                        2 ** int(cfg.get("network_res_log2", 6)))))
     vt = float(cfg.get("train_obj_visible_theshold", 0.1))
     batch = int(cfg["batch_size"])
@@ -129,7 +129,7 @@ def build_test_loader(cfg: Dict, xyz: np.ndarray, batch_size: int = 16,
     if use_det:
         samples = attach_detections(samples, load_detections(det_path, cfg["obj_id"]))
     ds = CropDataset(samples, xyz, is_train=False, use_detections=use_det,
-                     **_crop_kw(cfg, crop_gt))
+                     **crop_kw(cfg, crop_gt))
     return Loader(ds, batch_size, shuffle=False, drop_last=False, infinite=False), samples
 
 
@@ -147,7 +147,7 @@ def build_val_slice_loader_factory(cfg: Dict, xyz: np.ndarray, *,
         cfg.get("calib_folder", cfg.get("val_folder", cfg.get("test_folder", "test"))),
         cfg["obj_id"], 0.1)[:max_images]
     ds = CropDataset(samples, xyz, is_train=False, use_detections=False,
-                     **_crop_kw(cfg, crop_gt))
+                     **crop_kw(cfg, crop_gt))
 
     def factory():
         return Loader(ds, batch_size, shuffle=False, drop_last=False, infinite=False)
@@ -268,7 +268,7 @@ def build_train_loaders_lm(cfg: Dict, p3d_table: Dict, seed: int = 0):
     lm_imgn_root, imgn_n_per_obj an object) when one is named, with the
     background swap of bg_paths / change_bg_prob; and a factory of one
     object's validation loader, `factory(obj_id)`."""
-    common_kw = _crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
+    common_kw = crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
                                           2 ** int(cfg.get("network_res_log2", 6)))))
     vt = float(cfg.get("train_obj_visible_theshold", 0.1))
     batch = int(cfg["batch_size"])
@@ -320,11 +320,11 @@ def maybe_graft_pretrained_backbone(cfg: Dict, state: TrainState) -> TrainState:
     `backbone_pretrain_checkpoint` names a checkpoint dir: the `backbone.*`
     entries of its latest checkpoint's model go into `state.module` in place,
     validated entry by entry (models/convert.py::graft_backbone). The NOCS
-    network (cli/pretrain_backbone.py in the JAX package) writes such
-    checkpoints; an InitNet checkpoint has the same backbone entries. It
-    stands in for the reference's ImageNet-pretrained timm weights
-    (`model/backbone.py:39-50`), which need a network. Only at step 0: a
-    resumed run already carries its further-trained backbone.
+    pretraining CLI (cli/pretrain_backbone.py) writes such checkpoints; an
+    InitNet checkpoint has the same backbone entries. It stands in for the
+    reference's ImageNet-pretrained timm weights (`model/backbone.py:39-50`),
+    which need a network. Only at step 0: a resumed run already carries its
+    further-trained backbone.
 
     A dir with no checkpoint trains the backbone from scratch with a warning,
     or raises FileNotFoundError under CHECKERPOSE_REQUIRE_BACKBONE_GRAFT=1."""

@@ -88,6 +88,7 @@ class HRModule(nn.Module):
 _HRNET_CFGS = {
     # name: (widths, stage_modules (s2, s3, s4), blocks_per_module)
     "hrnet_w18": ((18, 36, 72, 144), (1, 4, 3), 4),
+    "hrnet_w30": ((30, 60, 120, 240), (1, 4, 3), 4),
     "hrnet_w18_small": ((18, 36, 72, 144), (1, 1, 1), 2),
 }
 

@@ -9,8 +9,9 @@ batch statistics with Flax's formula and running-stat update in train mode,
 running statistics in eval mode.
 
 Initialisation follows the Flax defaults: lecun-normal kernels (truncated
-normal, fan-in scaling), zero biases, BN scale 1 / bias 0 / mean 0 / var 1.
-`init_params(module, generator)` re-draws every kernel from a torch.Generator.
+normal, fan-in scaling), zero biases, BN and LayerNorm scale 1 / bias 0, BN
+mean 0 / var 1. `init_params(module, generator)` re-draws every kernel from a
+torch.Generator.
 """
 from __future__ import annotations
 
@@ -39,9 +40,12 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-initialise every layer of `module` in `modules()` order."""
+    """Re-initialise, in `modules()` order, every module that has a
+    `reset_parameters(generator)`: the layers here and the blocks that hold
+    a parameter of their own (ConvNeXt's layer scale). The port builds no
+    torch layer with parameters."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d, Dense, BatchNorm)):
+        if hasattr(m, "reset_parameters"):
             m.reset_parameters(generator)
 
 
@@ -54,17 +58,20 @@ def _same_pads(n: int, k: int, s: int):
 
 
 class Conv2d(nn.Module):
-    """Flax `nn.Conv` on NCHW: weight (O, I, kH, kW); padding "SAME" or an
-    int applied on both sides."""
+    """Flax `nn.Conv` on NCHW: weight (O, I / groups, kH, kW); padding
+    "SAME" or an int applied on both sides; `groups` is Flax's
+    `feature_group_count` (groups = cin: depthwise)."""
 
     def __init__(self, cin: int, cout: int, kernel=3, stride: int = 1,
-                 padding="SAME", bias: bool = False, dtype=torch.bfloat16):
+                 padding="SAME", bias: bool = False, groups: int = 1,
+                 dtype=torch.bfloat16):
         super().__init__()
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else tuple(kernel)
         self.stride = stride
         self.padding = padding
+        self.groups = groups
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kh, kw))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.reset_parameters()
 
@@ -89,7 +96,7 @@ class Conv2d(nn.Module):
             pad = self.padding
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x, self.weight.to(self.dtype), b, stride=self.stride,
-                        padding=pad)
+                        padding=pad, groups=self.groups)
 
 
 class ConvTranspose2d(nn.Module):
@@ -193,6 +200,32 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         mul = (torch.rsqrt(var + self.eps) * self.weight).view(shape)
         return (x - mean.view(shape)) * mul + self.bias.view(shape)
+
+
+class LayerNorm(nn.Module):
+    """Flax `nn.LayerNorm(epsilon=1e-6, dtype=float32)` over `channel_dim`:
+    f32 statistics (f64 for an f64 input) with the fast variance
+    max(0, E[x^2] - E[x]^2), then (x - mean) * rsqrt(var + eps) * scale +
+    bias in that dtype, which it returns; the caller casts back."""
+
+    def __init__(self, num: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num))
+        self.bias = nn.Parameter(torch.zeros(num))
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x, channel_dim: int = 1):
+        shape = [1] * x.dim()
+        shape[channel_dim] = -1
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x.mean(channel_dim, keepdim=True)
+        var = ((x * x).mean(channel_dim, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.view(shape)
+        return (x - mean) * mul + self.bias.view(shape)
 
 
 class ConvBNAct(nn.Module):

@@ -20,18 +20,18 @@ Loss structure:
   * train: RoI + masked x/y over 3+stage bits + weighted visib/full seg mask
     L1, and the opt-in auxiliary terms.
 
-Every step takes a static (N, K) graph or, for the multi-object variant, the
-stacked (O, N, K) table of every object's graph, which `knn_for_batch`
-gathers per sample by `batch["obj_idx"]`.
-
-Not ported yet, with its queue in ROADMAP.md: `nocs_labels` and
-`make_nocs_train_step` (dense NOCS pretraining).
+Every pose step takes a static (N, K) graph or, for the multi-object
+variant, the stacked (O, N, K) table of every object's graph, which
+`knn_for_batch` gathers per sample by `batch["obj_idx"]`. The dense NOCS
+step (`make_nocs_train_step`) pretrains a backbone with labels that
+`nocs_labels` back-projects from a depth crop rendered on the device.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +39,7 @@ from checkerpose_tpu_torch.losses import (mask_loss_interpolate, masked_code_los
                                           per_bit_masked_code_loss, unmasked_code_loss)
 from checkerpose_tpu_torch.ops import augment, codes, geometry
 from checkerpose_tpu_torch.ops.crop import normalize_image
+from checkerpose_tpu_torch.ops.raster import face_chunks, render_depth_crops
 from checkerpose_tpu_torch.train.state import TrainState
 
 
@@ -70,11 +71,6 @@ def finebit_bit_weights(cfg, step: int, active_bits: int):
     if boost <= 0.0 or step < start_step or active_bits <= start_bit:
         return None
     return tuple(1.0 if j < start_bit else boost for j in range(active_bits))
-
-
-def make_nocs_train_step(*args, **kwargs):
-    raise NotImplementedError("the dense NOCS pretraining step is not ported yet "
-                              "(ROADMAP.md, queue 1: NOCS backbone pretraining)")
 
 
 def knn_for_batch(knn_idx, batch):
@@ -432,3 +428,79 @@ def make_pose_forward(net, knn_idx, stage: int):
                 "seg_visib": seg[..., 0], "seg_full": seg[..., 1]}
 
     return fwd
+
+
+# ---------------------------------------------------------------------------
+# dense NOCS pretraining (NOCSNet)
+# ---------------------------------------------------------------------------
+
+def nocs_labels(depth, mask_visib, bbox, cam_K, R, t, diameter: float):
+    """Per-pixel NOCS targets from a depth crop, on its device.
+
+    depth (B, S, S) at the crop grid, in t's unit (0 = none); mask_visib
+    (B, S, S) {0, 1}; bbox (B, 4) the final square crop; cam_K, R (B, 3, 3);
+    t (B, 3). Each cell centre is back-projected, u = w / S (g + 0.5) + x,
+    P = K^-1 [u, v, 1] z, to model coordinates m = R^T (P - t), normalized
+    as m / diameter + 0.5 (the object fits a cube of side diameter).
+    Returns (nocs (B, S, S, 3) clipped to [0, 1], valid (B, S, S) f32 where
+    z > 0 and the mask is set)."""
+    S = depth.shape[1]
+    g = torch.arange(S, dtype=torch.float32, device=depth.device) + 0.5
+    u = (bbox[:, 2:3] / S * g + bbox[:, 0:1])[:, None, :]          # (B, 1, S) along x
+    v = (bbox[:, 3:4] / S * g + bbox[:, 1:2])[:, :, None]          # (B, S, 1) along y
+    K = cam_K[:, :, :, None, None]
+    X = (u - K[:, 0, 2]) * depth / K[:, 0, 0]
+    Y = (v - K[:, 1, 2]) * depth / K[:, 1, 1]
+    P = torch.stack([X, Y, depth], dim=-1)                          # (B, S, S, 3)
+    m = torch.einsum("bji,bhwj->bhwi", R, P - t[:, None, None, :])
+    valid = ((depth > 0) & (mask_visib > 0.5)).float()
+    return (m / diameter + 0.5).clamp(0.0, 1.0), valid
+
+
+def nocs_loss(net, imgs, batch, depth, diameter: float, visib_loss_weight: float = 0.5):
+    """Forward of a NOCSNet on normalized NHWC `imgs` and its loss: the L1 of
+    the 3 NOCS channels over the valid cells (normalized by 3 n) plus
+    `visib_loss_weight` times the mean BCE of the visibility logit over the
+    whole grid. (total, metrics)."""
+    gt, valid = nocs_labels(depth, batch["mask_visib"], batch["bbox"], batch["cam_K"],
+                            batch["R"], batch["t"], diameter)
+    out = net(imgs)
+    n = valid.sum().clamp_min(1.0)
+    l_nocs = ((out[..., :3] - gt).abs() * valid[..., None]).sum() / (3.0 * n)
+    l_vis = F.binary_cross_entropy_with_logits(out[..., 3], batch["mask_visib"])
+    total = l_nocs + visib_loss_weight * l_vis
+    return total, {"loss": total, "loss_nocs": l_nocs, "loss_visib": l_vis}
+
+
+def make_nocs_train_step(net, *, diameter: float, use_pepper_salt=True,
+                         use_motion_blur=True, color_aug_prob=0.8,
+                         visib_loss_weight: float = 0.5, mesh=None):
+    """Dense NOCS pretraining step of a NOCSNet, with the pose steps' color
+    augmentation and train-mode BatchNorm.
+
+    mesh: (verts (V, 3), faces (F, 3)) of the object, put on the net's
+    device when the step is built. When given, the step renders each
+    sample's depth crop there (ops/raster.py) at the grid of
+    `batch["mask_visib"]`; otherwise `batch["depth"]` carries it."""
+    if mesh is not None:
+        dev = next(net.parameters()).device
+        verts = torch.as_tensor(np.asarray(mesh[0], np.float32), device=dev)
+        chunks = face_chunks(mesh[1], dev)
+
+    def depth_of(batch):
+        if mesh is None:
+            return batch["depth"]
+        return render_depth_crops(verts, chunks, batch["R"], batch["t"], batch["cam_K"],
+                                  batch["bbox"], batch["mask_visib"].shape[1])
+
+    def step(state: TrainState, batch, generator):
+        _check_training(state, net)
+        imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
+                                        use_motion_blur, train=True,
+                                        color_aug_prob=color_aug_prob)
+        total, metrics = nocs_loss(net, imgs, batch, depth_of(batch), diameter,
+                                   visib_loss_weight)
+        _update(state, total)
+        return _detached(metrics)
+
+    return step

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, evaluation and workflow paths on one NVIDIA GPU.
+"""Drive the PyTorch port's paths on one NVIDIA GPU: serving to backbone pretraining.
 
     python3 chip_smoke.py                 # every phase, as a user would run it
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler table
@@ -95,6 +95,24 @@ Phases (each raises on failure; the script then exits non-zero):
               peak memory, s per eval, and torch.profiler device ms of the
               per-sample EdgeConv in a train step and an eval forward, beside
               the same inputs through the tensor-core kernel.
+ 10. backbones the other backbones, the timm import and NOCS pretraining:
+              (a) the slice's main path, ServingPipeline as in phase serving on
+              a resnet34 PoseNet at batch 512 (crops/s beside hrnet_w18's, ms
+              by part, peak memory, launches and device ms a batch); (b)
+              hrnet_w30, convnext tiny/small/base and darknet53 at the same
+              width, batch 64; (c) each of the six on the card against the
+              CPU in f32 (phase reference's bars; ConvNeXt's layer scales
+              drawn O(1)); (d) hand-written timm state_dicts of resnet34 and
+              hrnet_w18 through the converters into a flagship PoseNet's init
+              net, every backbone entry set, a finite forward; (e)
+              cli.pretrain_backbone at config/synth/nocs_backbone_synth.txt's
+              width (hrnet_w18, head 128, batch 64, 64x64 labels) for 20
+              iterations on phase workflow's fixture, the loss falling, the
+              on-card rasterizer against the host z-buffer and the NOCS
+              labels against float64, then the pretrain CLI grafting its
+              checkpoint bit for bit; (f) the test CLI on a resnet34 PoseNet.
+              Every bf16 forward launches the tensor-core kernel 11 times (2
+              an InitNet eval batch), the f32 ones the FMA kernel, NOCS none.
 Then one JSON line with the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -387,31 +405,35 @@ def phase_serving(device, batch=512, npoint=512, backbone="hrnet_w18", warm=2, i
     if not (torch.isfinite(out["R"]).all() and torch.isfinite(out["t"]).all()):
         raise AssertionError("non-finite R or t")
 
-    # split of one batch: network forward + decode, then the solver
+    # split of a batch, the median of 3: network forward + decode, then the solver
+    split = []
     with torch.inference_mode():
-        t1 = time.perf_counter()
-        p2d, valid = pipe.correspondences(images, bbox)
-        _sync(device)
-        t2 = time.perf_counter()
-        ransac_pnp(pipe.p3d.expand(batch, npoint, 3), p2d, valid, K.expand(batch, 3, 3),
-                   gen, **pipe.solver_kw)
-        _sync(device)
-        t3 = time.perf_counter()
+        for _ in range(3):
+            t1 = time.perf_counter()
+            p2d, valid = pipe.correspondences(images, bbox)
+            _sync(device)
+            t2 = time.perf_counter()
+            ransac_pnp(pipe.p3d.expand(batch, npoint, 3), p2d, valid, K.expand(batch, 3, 3),
+                       gen, **pipe.solver_kw)
+            _sync(device)
+            split.append((t2 - t1, time.perf_counter() - t2))
+    fwd_s, solver_s = np.median(split, axis=0)
 
     on_card = device.type == "cuda"
     res = {"batch": batch, "iters": iters, "edgeconv_launches": launches,
            "edgeconv_launches_by_route": by_route,
            "crops_per_s": batch * iters / dt if on_card else None,
            "batch_ms": 1e3 * dt / iters if on_card else None,
-           "forward_decode_ms": 1e3 * (t2 - t1) if on_card else None,
-           "solver_ms": 1e3 * (t3 - t2) if on_card else None,
+           "forward_decode_ms": 1e3 * float(fwd_s) if on_card else None,
+           "solver_ms": 1e3 * float(solver_s) if on_card else None,
            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30 if on_card else None,
            "success_rate": float(out["success"].float().mean())}
     res["kernel_launches_per_batch"], res["device_ms_per_batch"] = count_kernel_launches(
         lambda: pipe(images, bbox, K, gen), device)
     say(f"[serving] {backbone} npoint={npoint} K=20 stage=3 batch={batch} FAST_PROFILE: "
           f"{res['crops_per_s']} crops/s ({res['batch_ms']} ms/batch over {iters}); "
-          f"forward+decode {res['forward_decode_ms']} ms, solver {res['solver_ms']} ms; "
+          f"forward+decode {res['forward_decode_ms']} ms, solver {res['solver_ms']} ms "
+          f"(median of 3); "
           f"peak {res['peak_mem_gib']} GiB; EdgeConv launches {launches} "
           f"= {EDGECONV_PER_FORWARD} x {iters} forwards, by route {by_route}; R, t finite; "
           f"{res['kernel_launches_per_batch']} kernel launches and "
@@ -437,7 +459,8 @@ def phase_reference(device, batch=2, npoint=512, backbone="hrnet_w18", seed=0):
     JAX package's fused-forward test). The f32 forward is the FMA kernel's
     path: its launches are counted from 0 and must be 11, none on the
     tensor-core route. The card's bf16 model is compared too and its id
-    agreement reported."""
+    agreement reported. A ConvNeXt's layer scales are drawn O(1)
+    (`_layer_scales_o1`): at their init, 1e-6, every block is the identity."""
     from checkerpose_tpu_torch.models.posenet import knn_tensor, make_posenet
     from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
     from checkerpose_tpu_torch.ops.crop import normalize_image
@@ -450,7 +473,7 @@ def phase_reference(device, batch=2, npoint=512, backbone="hrnet_w18", seed=0):
     cfg = dict(npoint=npoint, backbone_name=backbone, **POSENET_CFG)
 
     def run(dev, dtype):
-        net = make_posenet(device=dev, seed=seed, dtype=dtype, **cfg)
+        net = _layer_scales_o1(make_posenet(device=dev, seed=seed, dtype=dtype, **cfg), seed)
         with torch.inference_mode():
             out = net(normalize_image(images.to(dev)), knn_tensor(knn, npoint, dev))
         return {k: v.float().cpu() for k, v in out.items()}
@@ -479,6 +502,17 @@ def phase_reference(device, batch=2, npoint=512, backbone="hrnet_w18", seed=0):
           f"{res['bf16']['x_id']:.4f}/{res['bf16']['y_id']:.4f}, seg max err "
           f"{res['bf16']['seg_max_abs_err']:.3g}")
     return res
+
+
+def _layer_scales_o1(net, seed):
+    """`net` with every ConvNeXt layer scale (`gamma`) drawn uniform in
+    [0.5, 1] from `seed`, the same on every device."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(".gamma"):
+                p.copy_(0.5 + 0.5 * torch.rand(p.shape, generator=g))
+    return net
 
 
 def _oracle_codes(uv, bbox, S):
@@ -1482,9 +1516,10 @@ def _wrapped(owner, name, wrap):
 
 def _run_cli(device, main, cfg, eval_owner, eval_name, timed_owner):
     """One CLI run, counted from 0: its printed lines, returned value, and
-    per eval the EdgeConv launches by route and calls of the per-sample
-    path, forward batches, the objects (obj_idx) they held, folds per
-    EdgeConv, the report, its start and the seconds (the card synchronised);
+    (unless `eval_owner` is None) per eval the EdgeConv launches by route
+    and calls of the per-sample path, forward batches, the objects
+    (obj_idx) they held, folds per EdgeConv, the report, its start and the
+    seconds (the card synchronised);
     the host seconds inside run_training, the host clock at the entry of
     every training step, the objects of each training batch and the peak
     device memory."""
@@ -1549,7 +1584,8 @@ def _run_cli(device, main, cfg, eval_owner, eval_name, timed_owner):
     reset_launch_counts()
     from contextlib import nullcontext
     timed = _wrapped(timed_owner, "run_training", timed_loop) if timed_owner else nullcontext()
-    with _wrapped(eval_owner, eval_name, count_eval), timed, redirect_stdout(tee):
+    counted = _wrapped(eval_owner, eval_name, count_eval) if eval_owner else nullcontext()
+    with counted, timed, redirect_stdout(tee):
         out = main(cfg)
     _sync(device)
     launches = dict(edgeconv_fused.launches_by_route)
@@ -2572,6 +2608,386 @@ def phase_lm(device, root=None, n_objects=4, n_test=32, n_train=128, n_scenes=2,
     return res
 
 
+NOCS_CFG = "config/synth/nocs_backbone_synth.txt"
+OTHER_BACKBONES = ("hrnet_w30", "convnext_tiny", "convnext_small", "convnext_base", "darknet53")
+TIMM_BACKBONES = ("resnet34", "hrnet_w18")
+# gate (e): on-card rasterizer against the host z-buffer, JAX's bars
+# (tests/test_raster.py): coverage differing on < 2% of pixels, 99th
+# percentile of the relative z error < 5e-3; NOCS labels against float64
+RASTER_COVER_TOL, RASTER_Z_Q99_TOL, NOCS_LABEL_TOL = 0.02, 5e-3, 1e-4
+
+
+def _nocs_labels_f64(depth, mask, bbox, K, R, t, diameter):
+    """`train/steps.py::nocs_labels` in float64 numpy, sample by sample."""
+    S = depth.shape[1]
+    g = np.arange(S, dtype=np.float64) + 0.5
+    out = []
+    for z, bb, Ki, Ri, ti in zip(depth, bbox, K, R, t):
+        uu = np.broadcast_to((bb[2] / S * g + bb[0])[None, :], (S, S))
+        vv = np.broadcast_to((bb[3] / S * g + bb[1])[:, None], (S, S))
+        P = np.stack([(uu - Ki[0, 2]) * z / Ki[0, 0], (vv - Ki[1, 2]) * z / Ki[1, 1], z], -1)
+        out.append(np.clip((P - ti) @ Ri / diameter + 0.5, 0.0, 1.0))
+    return np.stack(out), ((depth > 0) & (mask > 0.5)).astype(np.float64)
+
+
+def _gate_raster_and_labels(device, mesh, batch, diameter, n_host):
+    """Gate (e): one training batch's depth crops rendered on the device
+    against the host z-buffer (eval/renderer.py::render_depth at the crop
+    intrinsics) on its first `n_host` samples, and its NOCS labels against
+    float64 numpy; the rasterizer's device ms (CUDA events)."""
+    from checkerpose_tpu_torch.eval.renderer import render_depth
+    from checkerpose_tpu_torch.ops.raster import face_chunks, render_depth_crops
+    from checkerpose_tpu_torch.train.steps import nocs_labels
+
+    verts, faces = mesh
+    b = {k: torch.as_tensor(batch[k], device=device)
+         for k in ("R", "t", "cam_K", "bbox", "mask_visib")}
+    S = b["mask_visib"].shape[1]
+    vt = torch.as_tensor(verts, dtype=torch.float32, device=device)
+    chunks = face_chunks(faces, device)
+
+    def render():
+        return render_depth_crops(vt, chunks, b["R"], b["t"], b["cam_K"], b["bbox"], S)
+
+    depth = render()
+    raster_ms = time_ms(render, device, iters=3, warm=1)
+    got = depth.cpu().numpy()
+    worst = {"coverage_xor": 0.0, "z_rel_q99": 0.0, "covered_min": None}
+    for i in range(min(n_host, len(got))):
+        bb, Kf = batch["bbox"][i].astype(np.float64), batch["cam_K"][i].astype(np.float64)
+        Kc = np.array([[Kf[0, 0] * S / bb[2], 0, (Kf[0, 2] - bb[0]) * S / bb[2]],
+                       [0, Kf[1, 1] * S / bb[3], (Kf[1, 2] - bb[1]) * S / bb[3]], [0, 0, 1.0]])
+        want = render_depth(verts, faces, batch["R"][i], batch["t"][i], Kc, S, S)
+        hit_g, hit_w = got[i] > 0, want > 0
+        both = hit_g & hit_w
+        if not both.any():
+            raise AssertionError(f"gate (e): sample {i} renders nothing on one side "
+                                 f"({hit_g.sum()} / {hit_w.sum()} pixels)")
+        err = np.abs(got[i][both] - want[both]) / want[both]
+        worst["coverage_xor"] = max(worst["coverage_xor"], float((hit_g ^ hit_w).mean()))
+        worst["z_rel_q99"] = max(worst["z_rel_q99"], float(np.quantile(err, 0.99)))
+        worst["covered_min"] = min(worst["covered_min"] or S * S, int(both.sum()))
+    if worst["coverage_xor"] >= RASTER_COVER_TOL or worst["z_rel_q99"] >= RASTER_Z_Q99_TOL:
+        raise AssertionError(f"gate (e): rasterizer against the host z-buffer {worst}")
+    nocs, valid = nocs_labels(depth, b["mask_visib"], b["bbox"], b["cam_K"], b["R"], b["t"],
+                              diameter)
+    ref, ref_valid = _nocs_labels_f64(got.astype(np.float64), batch["mask_visib"],
+                                      *(batch[k].astype(np.float64)
+                                        for k in ("bbox", "cam_K", "R", "t")), diameter)
+    label_err = float(np.abs(nocs.cpu().numpy() - ref).max())
+    if not np.array_equal(valid.cpu().numpy(), ref_valid) or label_err > NOCS_LABEL_TOL:
+        raise AssertionError(f"gate (e): NOCS labels against float64: max err {label_err}")
+    return {"compared_samples": min(n_host, len(got)), **worst,
+            "label_max_abs_err": label_err, "valid_cells": int(ref_valid.sum()),
+            "raster_device_ms_per_batch": raster_ms, "batch": len(got), "S": S,
+            "faces": len(faces)}
+
+
+def _fixture(root, data_root, n_test, n_train, n_scenes, n_vertices, seed):
+    """The single-object fixture of phase workflow: its directory when it is
+    there, else one made by the same generator under `root`."""
+    from checkerpose_tpu_torch.data.synthetic import make_synthetic_bop
+    if data_root is not None and (Path(data_root) / "synth" / "models").is_dir():
+        return str(data_root), False
+    data = str(root / "data")
+    make_synthetic_bop(data, n_objects=1, n_scenes=n_scenes,
+                       folders={"test": n_test, "train_real": n_train},
+                       n_vertices=n_vertices, raw_cache=True, write_png=False, seed=seed)
+    return data, True
+
+
+def phase_backbones(device, batch=512, npoint=512, serving_backbone="resnet34", iters=5,
+                    other_backbones=OTHER_BACKBONES, other_batch=64, ref_batch=2,
+                    timm_backbones=TIMM_BACKBONES, timm_batch=8, root=None, data_root=None,
+                    n_test=64, n_train=128, n_scenes=2, n_vertices=2048, nocs_iters=20,
+                    graft_iters=2, eval_batch=64, n_host_renders=16, nocs_overrides=None,
+                    pretrain_overrides=None, eval_overrides=None, hrnet_w18_crops_per_s=None,
+                    seed=0):
+    """The other backbones, the timm import and NOCS pretraining; gates
+    (a)-(f) raise. (a) the slice's main path: ServingPipeline on
+    `serving_backbone` at the flagship PoseNet width, batch `batch`; (b)
+    each other backbone at batch `other_batch`; (c) each backbone on the
+    card against the CPU in f32; (d) hand-written timm state_dicts through
+    the converters into a flagship PoseNet's init net; (e) cli.pretrain_backbone
+    at NOCS_CFG's width with the rasterizer and labels against the host, then
+    the pretrain CLI grafting its checkpoint; (f) the test CLI on a
+    `serving_backbone` PoseNet."""
+    import shutil
+    from checkerpose_tpu_torch.cli import common, pretrain as cli_pre, test as cli_test
+    from checkerpose_tpu_torch.cli import pretrain_backbone as cli_nocs
+    from checkerpose_tpu_torch.cli.train import build_pose_net
+    from checkerpose_tpu_torch.data.bop_io import model_ply_path, scan_bop_object
+    from checkerpose_tpu_torch.data.dataset import CropDataset
+    from checkerpose_tpu_torch.data.ply import load_ply_mesh
+    from checkerpose_tpu_torch.models import convert
+    from checkerpose_tpu_torch.models.posenet import knn_tensor, make_posenet
+    from checkerpose_tpu_torch.ops.crop import normalize_image
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+    from checkerpose_tpu_torch.ops.geometry import pc_normalize
+    from checkerpose_tpu_torch.ops.knn import knn_index
+    from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
+    from checkerpose_tpu_torch.train.state import create_pose_state, make_optimizer
+
+    on_card = device.type == "cuda"
+    per_fwd = EDGECONV_PER_FORWARD if on_card else 0
+    t_phase = time.perf_counter()
+    res, paths = {}, {}
+
+    # --- (a) the main path: serving on resnet34 at batch 512 ---------------------------
+    a = phase_serving(device, batch=batch, npoint=npoint, backbone=serving_backbone,
+                      iters=iters, seed=seed)
+    a["vs_hrnet_w18"] = (a["crops_per_s"] / hrnet_w18_crops_per_s
+                         if on_card and hrnet_w18_crops_per_s else None)
+    res["serving"] = {serving_backbone: a}
+    paths[f"backbones_serving_{serving_backbone}"] = a["edgeconv_launches_by_route"]
+    say(f"[backbones] (a) {serving_backbone} serving at batch {batch}: {a['crops_per_s']} "
+        f"crops/s, {a['vs_hrnet_w18']} x hrnet_w18's {hrnet_w18_crops_per_s} in this run; "
+        f"{a['batch_ms']} ms a batch (forward + decode {a['forward_decode_ms']}, solver "
+        f"{a['solver_ms']}); peak {a['peak_mem_gib']} GiB; {a['kernel_launches_per_batch']} "
+        f"launches and {a['device_ms_per_batch']} device ms a batch")
+
+    # --- (b) the other backbones at batch 64 -------------------------------------------
+    for name in other_backbones:
+        r = phase_serving(device, batch=other_batch, npoint=npoint, backbone=name, warm=1,
+                          iters=1, seed=seed)
+        res["serving"][name] = r
+        paths[f"backbones_serving_{name}"] = r["edgeconv_launches_by_route"]
+        say(f"[backbones] (b) {name} serving at batch {other_batch}: {r['batch_ms']} ms a "
+            f"batch, peak {r['peak_mem_gib']} GiB, EdgeConv launches "
+            f"{r['edgeconv_launches_by_route']}")
+
+    # --- (c) card against CPU, f32 -----------------------------------------------------
+    res["reference"] = {}
+    for name in (serving_backbone, *other_backbones):
+        r = phase_reference(device, batch=ref_batch, npoint=npoint, backbone=name, seed=seed)
+        res["reference"][name] = r
+        paths[f"backbones_reference_{name}"] = r["f32"]["edgeconv_launches_by_route"]
+
+    # --- (d) timm checkpoints into a flagship PoseNet's init net -----------------------
+    rng = np.random.default_rng(seed + 11)
+    knn = knn_index(pc_normalize(rng.uniform(-40, 40, (npoint, 3))), 20)
+    images = torch.from_numpy(rng.integers(0, 255, (timm_batch, 256, 256, 3)).astype(np.uint8))
+    res["timm"] = {}
+    for name in timm_backbones:
+        conv = convert.CONVERTERS[name](timm_state_dict(name, rng))
+        net = make_posenet(device=device, seed=seed, npoint=npoint, backbone_name=name,
+                           **POSENET_CFG)
+        own = {k[len("init_net.backbone."):] for k in net.state_dict()
+               if k.startswith("init_net.backbone.")}
+        net.load_state_dict(convert.graft_backbone(net.state_dict(), conv, into="init_net"))
+        after = net.init_net.backbone.state_dict()
+        unset = sorted(own - set(conv))
+        differ = [k for k, v in conv.items() if not torch.equal(after[k].cpu(), v)]
+        reset_launch_counts()
+        with torch.inference_mode():
+            out = net(normalize_image(images.to(device)), knn_tensor(knn, npoint, device))
+        by_route = dict(edgeconv_fused.launches_by_route)
+        finite = all(bool(torch.isfinite(out[k]).all())
+                     for k in ("roi_logit", "x_logits", "y_logits", "seg_logits"))
+        if unset or differ or not finite or by_route != {"tc": per_fwd, "fma": 0}:
+            raise AssertionError(f"gate (d) {name}: {len(unset)} backbone entries not set, "
+                                 f"{len(differ)} differ, outputs finite {finite}, launches "
+                                 f"{by_route}")
+        res["timm"][name] = {"entries": len(conv), "launches": by_route}
+        paths[f"backbones_timm_{name}"] = by_route
+        say(f"[backbones] (d) timm {name}: {len(conv)} converted entries set every backbone "
+            f"entry of the init net; forward of {timm_batch} crops finite; EdgeConv launches "
+            f"{by_route}")
+        del net
+
+    # --- (e) NOCS pretraining, then its graft into the pretrain CLI ---------------------
+    root = Path(root) if root is not None else ROOT / "build" / "backbones_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data, made = _fixture(root, data_root, n_test, n_train, n_scenes, n_vertices, seed)
+    res["fixture"] = {"data": data, "generated": made,
+                      "seconds": time.perf_counter() - t0 if on_card else None}
+    over = dict(bop_path=data, tensorboard_path=str(root / "tb"), device=device.type)
+    ncfg = common.resolve_cfg(str(ROOT / NOCS_CFG), "obj01", dict(
+        nocs_overrides or {}, **over, check_point_path=str(root / "ckpt_nocs"),
+        total_iteration=nocs_iters, log_freq=1))
+    nrun = _run_cli(device, cli_nocs.main, ncfg, None, None, cli_nocs)
+    losses = _logged_losses(nrun["lines"])
+    k = min(5, len(losses) // 2)
+    if len(losses) != nocs_iters or not np.isfinite(losses).all() \
+            or not np.mean(losses[-k:]) < np.mean(losses[:k]):
+        raise AssertionError(f"gate (e): NOCS losses {losses}")
+    nocs_ckpt = Path(ncfg["check_point_path"])
+    mesh = load_ply_mesh(model_ply_path(data, "synth", 1))
+    diameter = common.object_diameter(ncfg)
+    crop_gt = int(ncfg.get("BoundingBox_CropSize_image", 256)) // 4
+    samples = scan_bop_object(data, "synth", ncfg["training_data_folder"], 1, 0.1)
+    xyz = common.load_keypoints(ncfg)[0]
+    ds = CropDataset(samples, xyz, is_train=True, seed=seed, **common.crop_kw(ncfg, crop_gt))
+    first = _stack_items([ds[i] for i in range(min(int(ncfg["batch_size"]), len(ds)))])
+    raster = _gate_raster_and_labels(device, mesh, first, diameter, n_host_renders)
+    res["nocs"] = {"iterations": nocs_iters, "batch": int(ncfg["batch_size"]),
+                   "backbone": ncfg["network_backbone_name"], "logged_losses": losses,
+                   "ms_per_iter": _ms_per_iter(nrun, nocs_iters) if on_card else None,
+                   "peak_mem_gib": nrun["peak_mem_gib"], "launches": nrun["launches"],
+                   **raster}
+    if nrun["launches"] != {"tc": 0, "fma": 0}:
+        raise AssertionError(f"gate (e): the NOCS run launched {nrun['launches']}")
+    paths["backbones_nocs"] = nrun["launches"]
+    say(f"[backbones] (e) cli.pretrain_backbone.main, {ncfg['network_backbone_name']} head "
+        f"{ncfg['nocs_head_width']}, {nocs_iters} iterations at batch {ncfg['batch_size']}: "
+        f"host ms an iteration {res['nocs']['ms_per_iter']}; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; peak {nrun['peak_mem_gib']} GiB; EdgeConv launches "
+        f"{nrun['launches']}; rasterizer {raster['raster_device_ms_per_batch']} device ms a "
+        f"batch of {raster['batch']} at S={raster['S']} ({raster['faces']} faces), against "
+        f"the host z-buffer on {raster['compared_samples']} samples: coverage differs on "
+        f"{raster['coverage_xor']:.4f} of the pixels (bar {RASTER_COVER_TOL}), z q99 "
+        f"{raster['z_rel_q99']:.2e} (bar {RASTER_Z_Q99_TOL}); labels against float64 "
+        f"{raster['label_max_abs_err']:.2e} (bar {NOCS_LABEL_TOL})")
+
+    grafted = {}
+
+    def capture_graft(orig):
+        def wrapped(cfg, state):
+            state = orig(cfg, state)
+            grafted.update({k: v.detach().cpu().clone() for k, v
+                            in state.module.state_dict().items() if k.startswith("backbone.")})
+            return state
+        return wrapped
+
+    pcfg = common.resolve_cfg(str(ROOT / PRETRAIN_CFG), "obj01", dict(
+        pretrain_overrides or {}, **over, check_point_path=str(root / "ckpt_pre"),
+        total_iteration=graft_iters, test_freq=graft_iters, log_freq=1,
+        backbone_pretrain_checkpoint=str(nocs_ckpt)))
+    with _wrapped(common, "maybe_graft_pretrained_backbone", capture_graft):
+        grun = _run_cli(device, cli_pre.main, pcfg, cli_pre, "evaluate_init", cli_pre)
+    source = CheckpointManager(str(nocs_ckpt)).restore_raw()["model"]
+    src_bb = {k: v for k, v in source.items() if k.startswith("backbone.")}
+    said = [ln for ln in grun["lines"] if ln.startswith("grafted NOCS-pretrained backbone")]
+    differ = [k for k, v in src_bb.items() if not torch.equal(grafted.get(k, torch.empty(0)), v)]
+    if not said or not src_bb or differ or set(grafted) != set(src_bb):
+        raise AssertionError(f"gate (e): graft line {said}, {len(differ)} of {len(src_bb)} "
+                             f"backbone entries differ from the NOCS checkpoint")
+    g_launches = _gate_launches(grun, INIT_EDGECONVS if on_card else 0, "gate (e)")
+    res["nocs_graft"] = {"line": said[0], "entries": len(src_bb), "launches": g_launches}
+    paths["backbones_nocs_graft_pretrain"] = g_launches
+    say(f"[backbones] (e) '{said[0]}': all {len(src_bb)} backbone entries equal the NOCS "
+        f"checkpoint's bit for bit; pretrain CLI {graft_iters} iterations, EdgeConv "
+        f"launches {g_launches}")
+
+    # --- (f) the test CLI on a resnet34 PoseNet ----------------------------------------
+    tcfg = common.resolve_cfg(str(ROOT / EVAL_CFG), "obj01", dict(
+        eval_overrides or {}, bop_path=data, init_network_backbone_name=serving_backbone,
+        Detection_reaults=f"{data}/detection_results/synth/synth_detections.json",
+        ckpt_dir=str(root / "ckpt_test"), eval_output_path=str(root / "out"),
+        test_batch_size=eval_batch, device=device.type))
+    net = build_pose_net(tcfg, 2 ** int(tcfg["num_p3d_log2"]))
+    state = create_pose_state(net, make_optimizer(1e-4), seed=seed, device=device)
+    _balance_seg_head(net, tcfg, device)
+    CheckpointManager(tcfg["ckpt_dir"]).save_best(state)
+    del net, state
+    n_images = len(scan_bop_object(data, "synth", "test", 1, 0.1))
+    forwards = -(-n_images // eval_batch)
+    spans = {}
+    reset_launch_counts()
+    report = cli_test.main(dict(tcfg, decode_mode="hard"), spans=spans)
+    _sync(device)
+    by_route = dict(edgeconv_fused.launches_by_route)
+    if by_route != {"tc": per_fwd * forwards, "fma": 0}:
+        raise AssertionError(f"gate (f): the test CLI's EdgeConv launches {by_route} for "
+                             f"{forwards} forward batches")
+    csv_path = root / "out" / f"{Path(EVAL_CFG).stem}_obj01.csv"
+    f_res = {"backbone": serving_backbone, "forward_batches": forwards,
+             "edgeconv_launches_by_route": by_route,
+             **_gate_eval_report(report, csv_path, n_images, False),
+             **{k: v for k, v in _split_spans(spans, n_images).items()
+                if k.startswith("images_per_s")}}
+    if not on_card:
+        f_res.update(images_per_s=None, images_per_s_after_first=None)
+    res["test_cli"] = f_res
+    paths[f"backbones_test_cli_{serving_backbone}"] = by_route
+    say(f"[backbones] (f) cli.test.main with init_network_backbone_name = {serving_backbone}, "
+        f"{n_images} images at batch {eval_batch}: {f_res['images_per_s']} images/s "
+        f"({f_res['images_per_s_after_first']} after the first batch); report keys and "
+        f"{f_res['csv_rows']} CSV rows; EdgeConv launches {by_route}")
+    res["launches_by_path"] = paths
+    res["seconds"] = time.perf_counter() - t_phase if on_card else None
+    say(f"[backbones] phase took {res['seconds']} s")
+    return res
+
+
+def timm_state_dict(name, rng):
+    """A timm-layout state_dict of `name` ("resnet34" as torchvision and
+    timm name it, or "hrnet_w18", timm's HighResolutionNet) written by hand:
+    random float32 numpy values, positive running variances, and none of
+    the classification tensors."""
+    sd = {}
+
+    def conv(k, o, i, kh):
+        sd[k + ".weight"] = (rng.standard_normal((o, i, kh, kh))
+                             * math.sqrt(2.0 / (i * kh * kh))).astype(np.float32)
+
+    def bn(k, c):
+        sd[k + ".weight"] = rng.uniform(0.5, 1.0, c).astype(np.float32)
+        sd[k + ".bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[k + ".running_mean"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[k + ".running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    def block(pre, cin, planes, cout, n_convs):
+        """A BasicBlock (two 3x3) or a Bottleneck (1x1, 3x3, 1x1), with the
+        projection where the widths differ."""
+        shapes = ([(cout, cin, 3), (cout, cout, 3)] if n_convs == 2 else
+                  [(planes, cin, 1), (planes, planes, 3), (cout, planes, 1)])
+        for i, (o, c, k) in enumerate(shapes, 1):
+            conv(f"{pre}.conv{i}", o, c, k)
+            bn(f"{pre}.bn{i}", o)
+        if cin != cout:
+            conv(f"{pre}.downsample.0", cout, cin, 1)
+            bn(f"{pre}.downsample.1", cout)
+
+    if name == "resnet34":
+        conv("conv1", 64, 3, 7)
+        bn("bn1", 64)
+        cin = 64
+        for s, (w, nb) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3))):
+            for b in range(nb):
+                block(f"layer{s + 1}.{b}", cin, w, w, 2)
+                cin = w
+        return sd
+    if name != "hrnet_w18":
+        raise ValueError(f"no timm layout for {name}")
+    widths = (18, 36, 72, 144)
+    conv("conv1", 64, 3, 3)
+    bn("bn1", 64)
+    conv("conv2", 64, 64, 3)
+    bn("bn2", 64)
+    for k in range(4):
+        block(f"layer1.{k}", 64 if k == 0 else 256, 64, 256, 3)
+    prev = (256,)
+    for stage, modules in enumerate((1, 4, 3)):
+        ws = widths[:stage + 2]
+        for b in range(len(ws) - 1):
+            if prev[b] != ws[b]:
+                conv(f"transition{stage + 1}.{b}.0", ws[b], prev[b], 3)
+                bn(f"transition{stage + 1}.{b}.1", ws[b])
+        conv(f"transition{stage + 1}.{len(ws) - 1}.0.0", ws[-1], prev[-1], 3)
+        bn(f"transition{stage + 1}.{len(ws) - 1}.0.1", ws[-1])
+        for m in range(modules):
+            pre = f"stage{stage + 2}.{m}"
+            for b, w in enumerate(ws):
+                for k in range(4):
+                    block(f"{pre}.branches.{b}.{k}", w, w, w, 2)
+            for i in range(len(ws)):
+                for j in range(len(ws)):
+                    fl = f"{pre}.fuse_layers.{i}.{j}"
+                    if j > i:
+                        conv(f"{fl}.0", ws[i], ws[j], 1)
+                        bn(f"{fl}.1", ws[i])
+                    for step in range(i - j):
+                        out = ws[i] if step == i - j - 1 else ws[j]
+                        conv(f"{fl}.{step}.0", out, ws[j], 3)
+                        bn(f"{fl}.{step}.1", out)
+        prev = ws
+    for b, w in enumerate(widths):
+        block(f"incre_modules.{b}.0", w, 32 * 2 ** b, 128 * 2 ** b, 3)
+    return sd
+
+
 KERNELS = {
     "tc": dict(name="edgeconv_fused_tc", source="checkerpose_tpu_torch/csrc/edgeconv_tc.cu",
                dtype="bfloat16", phase="serving",
@@ -2579,11 +2995,14 @@ KERNELS = {
                     "trained weights (phase train), every forward batch of the test "
                     "CLI (phase eval) and every eval batch of the pretrain and train "
                     "CLIs (phase workflow); 0 on the LM paths (phase lm: a per-sample "
-                    "graph takes the plain per-sample path, as in the JAX package)"),
+                    "graph takes the plain per-sample path, as in the JAX package); phase "
+                    "backbones: serving on resnet34 (the slice's main path) and the other "
+                    "backbones, the timm grafts, the pretrain CLI after the NOCS graft and "
+                    "the test CLI on resnet34; 0 in NOCS pretraining"),
     "fma": dict(name="edgeconv_fused_fma", source="checkerpose_tpu_torch/csrc/edgeconv.cu",
                 dtype="float32", phase="reference",
-                path="f32 forward (phase reference); the bf16 serving path no longer "
-                     "launches this kernel"),
+                path="f32 forward (phase reference, and phase backbones (c) on every "
+                     "backbone); the bf16 serving path no longer launches this kernel"),
 }
 
 
@@ -2656,6 +3075,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", action="store_true",
                     help="also time the tensor-core kernel beside its synchronous-copy build")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
@@ -2680,6 +3100,9 @@ def main(argv=None) -> int:
     evaluation = phase_eval(device, seed=args.seed)
     workflow = phase_workflow(device, seed=args.seed)
     lm = phase_lm(device, seed=args.seed, single_object_train=workflow["train"])
+    backbones = phase_backbones(device, seed=args.seed,
+                                data_root=ROOT / "build" / "workflow_smoke" / "data",
+                                hrnet_w18_crops_per_s=serving["crops_per_s"])
 
     launches = {"tc": serving["edgeconv_launches_by_route"]["tc"],
                 "fma": reference["f32"]["edgeconv_launches_by_route"]["fma"]}
@@ -2689,13 +3112,17 @@ def main(argv=None) -> int:
     print(json.dumps({"eval": evaluation, "card": card}))
     print(json.dumps({"workflow": workflow, "card": card}))
     print(json.dumps({"lm": lm, "card": card}))
+    print(json.dumps({"backbones": backbones, "card": card}))
+    script_s = time.perf_counter() - t_start
+    say(f"[script] {script_s:.1f} s from the start to the end of the last phase")
     lm_paths = lm["launches_by_path"]
     print(json.dumps({"kernels": kernel_summary(
         rows, launches, train["eval_after_training"]["edgeconv_launches_by_route"],
         evaluation["hard"]["edgeconv_launches_by_route"], eval_rows,
-        {**workflow["launches_by_path"], **lm_paths}),
+        {**workflow["launches_by_path"], **lm_paths, **backbones["launches_by_path"]}),
         "lm_path_launches": {k: sum(p[k] for p in lm_paths.values())
-                             for k in ("tc", "fma", "per_sample")}}))
+                             for k in ("tc", "fma", "per_sample")},
+        "script_s": script_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

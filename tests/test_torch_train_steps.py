@@ -438,11 +438,24 @@ def test_finebit_bit_weights(cfg, step, bits):
 
 
 def test_unported_paths_point_to_the_roadmap():
-    """The NOCS step still points to the roadmap; the multi-object graph no
-    longer does: a stacked (O, N, K) table gives each sample its object's
-    rows (tests/test_torch_lm_multiobj.py holds the rest)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_nocs_train_step(None, None, diameter=1.0)
+    """No path of the step module points to the roadmap any more: the NOCS
+    step builds and trains a tiny NOCSNet with finite metrics
+    (tests/test_torch_nocs.py holds it against JAX), and a stacked (O, N, K)
+    table gives each sample its object's rows (tests/test_torch_lm_multiobj.py
+    holds the rest)."""
+    from checkerpose_tpu_torch.models.nocs import NOCSNet
+    nocs = NOCSNet("hrnet_w18_small", head_width=8, dtype=torch.float32)
+    state = create_init_state(nocs, make_optimizer(1e-3), device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.integers(0, 255, (2, 64, 64, 3)).astype(np.uint8)),
+             "depth": torch.full((2, 16, 16), 400.0),
+             "mask_visib": torch.from_numpy((rng.random((2, 16, 16)) > 0.5).astype(np.float32)),
+             "bbox": torch.tensor([[40., 50., 120., 120.]] * 2),
+             "cam_K": torch.tensor([[[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]]] * 2),
+             "R": torch.eye(3).expand(2, 3, 3), "t": torch.tensor([[0., 0., 400.]] * 2)}
+    m = steps.make_nocs_train_step(nocs, diameter=100.0)(state, batch, torch.Generator())
+    assert sorted(m) == ["loss", "loss_nocs", "loss_visib"] and state.step == 1
+    assert all(bool(torch.isfinite(v)) for v in m.values())
     table = torch.arange(2 * NPT * KNN, dtype=torch.int32).view(2, NPT, KNN)
     got = steps.knn_for_batch(table, {"obj_idx": torch.tensor([1, 1, 0])})
     assert torch.equal(got, table[[1, 1, 0]])

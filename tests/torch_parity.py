@@ -19,8 +19,11 @@ N_HYP = 16    # hypotheses of the stand-in solver
 
 def random_variables(module, *args, seed: int = 0, bn_scale=(0.5, 1.5), **kwargs):
     """Variables with `module.init`'s tree: kernels ~ N(0, 1/fan_in), small
-    random biases and BN means, BN scale uniform in `bn_scale` (lower it to
-    keep a deep net's activations O(1)), BN var uniform in [0.5, 1.5]."""
+    random biases and BN means, BN and LayerNorm scale uniform in `bn_scale`
+    (lower it to keep a deep net's activations O(1)), BN var uniform in
+    [0.5, 1.5], ConvNeXt's layer scale `gamma` uniform in [0.5, 1] (at
+    Flax's init, 1e-6, every block is the identity and a parity test would
+    not see its layers)."""
     import jax
     shapes = jax.eval_shape(lambda k: module.init(k, *args, **kwargs),
                             jax.random.PRNGKey(0))
@@ -36,6 +39,8 @@ def random_variables(module, *args, seed: int = 0, bn_scale=(0.5, 1.5), **kwargs
             v = rng.uniform(*bn_scale, s.shape)
         elif name == "var":
             v = rng.uniform(0.5, 1.5, s.shape)
+        elif name == "gamma":
+            v = rng.uniform(0.5, 1.0, s.shape)
         else:
             raise KeyError(name)
         return v.astype(np.float32)

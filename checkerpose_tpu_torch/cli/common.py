@@ -10,9 +10,16 @@ stand-in) keeps one table row per object, ordered by sorted obj_id:
 images, optionally mixed with lm_imgn renders or a second folder, with the
 background swap) and the stacked branch of `attach_p3d`. The test loaders
 take a {obj_id: (N, 3)} table as well as one object's keypoints.
+
+Under data parallelism (a `mesh` of parallel/mesh.py, which every training
+CLI makes with `make_mesh` at its start) each rank's train loader reads its
+part of the manifest (`shard_manifest`) at batch_size / W, both sizes of a
+mixed loader divided alike; a size that does not divide raises. Validation
+stays whole: rank 0 evaluates.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -30,6 +37,7 @@ from checkerpose_tpu_torch.data.lm_imgn import scan_lm_imgn
 from checkerpose_tpu_torch.models.convert import graft_backbone
 from checkerpose_tpu_torch.ops.geometry import pc_normalize
 from checkerpose_tpu_torch.ops.knn import knn_index
+from checkerpose_tpu_torch.parallel.mesh import Mesh, local_batch_size, shard_manifest
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.state import TrainState
 
@@ -80,9 +88,26 @@ def crop_kw(cfg: Dict, crop_gt: int) -> Dict:
                 frame_cache=_frame_cache(cfg))
 
 
-def build_train_loaders(cfg: Dict, xyz: np.ndarray, seed: int = 0):
-    """Train loader (optionally mixing two folders at second_dataset_ratio)
-    + a factory of the validation loader."""
+def _rank_part(samples, mesh: Optional[Mesh]):
+    return samples if mesh is None else shard_manifest(samples, mesh.rank, mesh.world)
+
+
+def _train_loader(ds1, ds2, batch: int, ratio: float, seed: int, mesh: Optional[Mesh]):
+    """This rank's train loader: over ds1 at its rows of `batch`, or mixing
+    ds1 and ds2 at `ratio` (both sub-batches divided over the ranks)."""
+    if ds2 is None:
+        return Loader(ds1, local_batch_size(batch, mesh), shuffle=True, infinite=True,
+                      seed=seed)
+    b1, b2 = mixed_batch_sizes(batch, ratio)
+    return MixedLoader(
+        Loader(ds1, local_batch_size(b1, mesh), shuffle=True, infinite=True, seed=seed),
+        Loader(ds2, local_batch_size(b2, mesh), shuffle=True, infinite=True, seed=seed + 1))
+
+
+def build_train_loaders(cfg: Dict, xyz: np.ndarray, seed: int = 0,
+                        mesh: Optional[Mesh] = None):
+    """Train loader (optionally mixing two folders at second_dataset_ratio;
+    this rank's part under `mesh`) + a factory of the validation loader."""
     common = crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
                                        2 ** int(cfg.get("network_res_log2", 6)))))
     vt = float(cfg.get("train_obj_visible_theshold", 0.1))
@@ -91,18 +116,14 @@ def build_train_loaders(cfg: Dict, xyz: np.ndarray, seed: int = 0):
     s1 = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
                          cfg["training_data_folder"], cfg["obj_id"], vt)
     folder2 = cfg.get("training_data_folder_2", "none")
+    ds2 = None
     if folder2 and folder2 != "none":
         s2 = scan_bop_object(cfg["bop_path"], cfg["dataset_name"], folder2,
                              cfg["obj_id"], vt)
-        b1, b2 = mixed_batch_sizes(batch, float(cfg.get("second_dataset_ratio", 0.75)))
-        l1 = Loader(CropDataset(s1, xyz, is_train=True, seed=seed, **common),
-                    b1, shuffle=True, infinite=True, seed=seed)
-        l2 = Loader(CropDataset(s2, xyz, is_train=True, seed=seed + 1, **common),
-                    b2, shuffle=True, infinite=True, seed=seed + 1)
-        train_loader = MixedLoader(l1, l2)
-    else:
-        train_loader = Loader(CropDataset(s1, xyz, is_train=True, seed=seed, **common),
-                              batch, shuffle=True, infinite=True, seed=seed)
+        ds2 = CropDataset(_rank_part(s2, mesh), xyz, is_train=True, seed=seed + 1, **common)
+    train_loader = _train_loader(
+        CropDataset(_rank_part(s1, mesh), xyz, is_train=True, seed=seed, **common), ds2,
+        batch, float(cfg.get("second_dataset_ratio", 0.75)), seed, mesh)
 
     sv = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
                          cfg.get("val_folder", "test"), cfg["obj_id"], 0.1)
@@ -261,13 +282,15 @@ def _background_paths(cfg: Dict):
                   if f.lower().endswith((".jpg", ".png", ".jpeg")))
 
 
-def build_train_loaders_lm(cfg: Dict, p3d_table: Dict, seed: int = 0):
+def build_train_loaders_lm(cfg: Dict, p3d_table: Dict, seed: int = 0,
+                           mesh: Optional[Mesh] = None):
     """The multi-object train loader over every object's
     training_data_folder, mixed at second_dataset_ratio with
     training_data_folder_2 (`lm_imgn`: the lm_imgn renders under
     lm_imgn_root, imgn_n_per_obj an object) when one is named, with the
-    background swap of bg_paths / change_bg_prob; and a factory of one
-    object's validation loader, `factory(obj_id)`."""
+    background swap of bg_paths / change_bg_prob (this rank's part under
+    `mesh`); and a factory of one object's validation loader,
+    `factory(obj_id)`."""
     common_kw = crop_kw(cfg, int(cfg.get("BoundingBox_CropSize_GT",
                                           2 ** int(cfg.get("network_res_log2", 6)))))
     vt = float(cfg.get("train_obj_visible_theshold", 0.1))
@@ -295,16 +318,11 @@ def build_train_loaders_lm(cfg: Dict, p3d_table: Dict, seed: int = 0):
         s2 = gather(folder2)
     else:
         s2 = None
-    if s2:
-        b1, b2 = mixed_batch_sizes(batch, float(cfg.get("second_dataset_ratio", 0.75)))
-        l1 = Loader(CropDataset(s1, p3d_table, seed=seed, **train_kw), b1, shuffle=True,
-                    infinite=True, seed=seed)
-        l2 = Loader(CropDataset(s2, p3d_table, seed=seed + 1, **train_kw), b2, shuffle=True,
-                    infinite=True, seed=seed + 1)
-        train_loader = MixedLoader(l1, l2)
-    else:
-        train_loader = Loader(CropDataset(s1, p3d_table, seed=seed, **train_kw), batch,
-                              shuffle=True, infinite=True, seed=seed)
+    ds2 = (CropDataset(_rank_part(s2, mesh), p3d_table, seed=seed + 1, **train_kw)
+           if s2 else None)
+    train_loader = _train_loader(
+        CropDataset(_rank_part(s1, mesh), p3d_table, seed=seed, **train_kw), ds2, batch,
+        float(cfg.get("second_dataset_ratio", 0.75)), seed, mesh)
 
     def val_loader_factory(obj_id):
         sv = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
@@ -359,5 +377,4 @@ def maybe_graft_pretrained_backbone(cfg: Dict, state: TrainState) -> TrainState:
     state.module.load_state_dict(graft_backbone(state.module.state_dict(), backbone, into=""))
     print(f"grafted NOCS-pretrained backbone from {bk_ck} (step {int(raw['step'])})",
           flush=True)
-    return TrainState(module=state.module, optimizer=state.optimizer, step=0,
-                      best_score=state.best_score)
+    return dataclasses.replace(state, step=0)

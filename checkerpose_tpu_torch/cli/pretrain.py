@@ -9,7 +9,7 @@ An InitNet trained by `train/steps.py::make_pretrain_step` in
 checkpoint gated on its test_acc. Checkpoints go to
 <check_point_path>/<cfg_name>/<obj_name>, where the train CLI's
 `init_pretrained_root` finds them. Runs on the card unless `--device cpu` (or
-cfg `device`) says otherwise.
+cfg `device`) says otherwise; data-parallel under torchrun (see cli/train.py).
 """
 from __future__ import annotations
 
@@ -18,10 +18,10 @@ import argparse
 import torch
 
 from checkerpose_tpu_torch.cli import common
-from checkerpose_tpu_torch.device import resolve_device
 from checkerpose_tpu_torch.eval.harness import evaluate_init
 from checkerpose_tpu_torch.models.init_net import InitNet
 from checkerpose_tpu_torch.models.posenet import knn_tensor
+from checkerpose_tpu_torch.parallel.mesh import make_mesh
 from checkerpose_tpu_torch.train import steps
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.loop import run_training
@@ -55,7 +55,8 @@ def print_bit_err(be) -> None:
 
 def main(cfg):
     """Pretrain as cfg says; returns the final TrainState."""
-    dev = resolve_device(cfg.get("device", "cuda"))
+    mesh = make_mesh(cfg.get("device", "cuda"))
+    dev = mesh.device
     xyz, normed, knn_np = common.load_keypoints(cfg)
     npoint = xyz.shape[0]
     net = build_init_net(cfg, npoint)
@@ -64,7 +65,7 @@ def main(cfg):
     state = create_init_state(net, make_optimizer(float(cfg["learning_rate"])), device=dev)
     print(f"#parameters: {param_count(net):.2f}M", flush=True)
 
-    ckpt = CheckpointManager(cfg["check_point_path"])
+    ckpt = CheckpointManager(cfg["check_point_path"], mesh=mesh)
     if cfg.get("load_checkpoint", False) and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
@@ -72,7 +73,7 @@ def main(cfg):
     state = common.maybe_graft_pretrained_backbone(cfg, state)
 
     knn = knn_tensor(knn_np, npoint, dev)
-    train_loader, val_loader_factory = common.build_train_loaders(cfg, xyz)
+    train_loader, val_loader_factory = common.build_train_loaders(cfg, xyz, mesh=mesh)
     step = steps.make_pretrain_step(
         net, knn, crop_gt,
         mask_loss_type=cfg.get("MaskBit_Loss_Type", "BCE"),
@@ -83,7 +84,7 @@ def main(cfg):
         color_aug_prob=float(cfg.get("color_aug_prob", 0.8)),
         aux_heatmap_weight=float(cfg.get("aux_heatmap_loss_weight", 0.0)))
 
-    writer = MetricWriter(cfg["tensorboard_path"])
+    writer = MetricWriter(cfg["tensorboard_path"]) if mesh.lead else None
 
     def eval_fn(module):
         rep = evaluate_init(module, knn, val_loader_factory(), crop_gt,
@@ -98,8 +99,10 @@ def main(cfg):
         ckpt=ckpt, writer=writer,
         log_freq=int(cfg.get("log_freq", 100)),
         test_freq=int(cfg.get("test_freq", 1000)),
-        save_freq=int(cfg.get("save_freq", 0)) or None)
-    writer.close()
+        save_freq=int(cfg.get("save_freq", 0)) or None,
+        mesh=mesh)
+    if writer is not None:
+        writer.close()
     return state
 
 

@@ -11,7 +11,8 @@ sample's pose and crop (ops/raster.py). The pretrain CLIs graft the result
 into their init net through cfg `backbone_pretrain_checkpoint`
 (cli/common.py::maybe_graft_pretrained_backbone). There is no pose metric
 here, so the eval reports test_acc 0. Runs on the card unless `--device cpu`
-(or cfg `device`) says otherwise.
+(or cfg `device`) says otherwise; data-parallel under torchrun (see
+cli/train.py).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from checkerpose_tpu_torch.cli import common
 from checkerpose_tpu_torch.data.bop_io import model_ply_path, scan_bop_object
 from checkerpose_tpu_torch.data.dataset import CropDataset, Loader
 from checkerpose_tpu_torch.data.ply import load_ply_mesh
-from checkerpose_tpu_torch.device import resolve_device
 from checkerpose_tpu_torch.models.nocs import NOCSNet
+from checkerpose_tpu_torch.parallel.mesh import local_batch_size, make_mesh, shard_manifest
 from checkerpose_tpu_torch.train import steps
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.loop import run_training
@@ -45,7 +46,8 @@ def create_nocs_state(net: NOCSNet, optimizer, *, seed=0, device="cuda"):
 
 def main(cfg):
     """Pretrain as cfg says; returns the final TrainState."""
-    dev = resolve_device(cfg.get("device", "cuda"))
+    mesh = make_mesh(cfg.get("device", "cuda"))
+    dev = mesh.device
     xyz, _, _ = common.load_keypoints(cfg)
     crop_img = int(cfg.get("BoundingBox_CropSize_image", 256))
     # labels live on the head's stride-4 grid, not at the pose codes' GT size
@@ -54,7 +56,7 @@ def main(cfg):
     state = create_nocs_state(net, make_optimizer(float(cfg["learning_rate"])), device=dev)
     print(f"#parameters: {param_count(net):.2f}M", flush=True)
 
-    ckpt = CheckpointManager(cfg["check_point_path"])
+    ckpt = CheckpointManager(cfg["check_point_path"], mesh=mesh)
     if cfg.get("load_checkpoint", False) and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
@@ -67,8 +69,9 @@ def main(cfg):
     samples = scan_bop_object(cfg["bop_path"], cfg["dataset_name"],
                               cfg["training_data_folder"], cfg["obj_id"],
                               float(cfg.get("train_obj_visible_theshold", 0.1)))
-    loader = Loader(CropDataset(samples, xyz, is_train=True, **common.crop_kw(cfg, crop_gt)),
-                    int(cfg["batch_size"]), shuffle=True, infinite=True)
+    loader = Loader(CropDataset(shard_manifest(samples, mesh.rank, mesh.world), xyz,
+                                is_train=True, **common.crop_kw(cfg, crop_gt)),
+                    local_batch_size(int(cfg["batch_size"]), mesh), shuffle=True, infinite=True)
     step = steps.make_nocs_train_step(
         net, diameter=common.object_diameter(cfg),
         use_pepper_salt=bool(cfg.get("use_peper_salt", True)),
@@ -76,15 +79,17 @@ def main(cfg):
         color_aug_prob=float(cfg.get("color_aug_prob", 0.8)),
         mesh=(verts, faces))
 
-    writer = MetricWriter(cfg["tensorboard_path"])
+    writer = MetricWriter(cfg["tensorboard_path"]) if mesh.lead else None
     state = run_training(
         state=state, step_fns={None: step}, loader=loader,
         total_iteration=int(cfg["total_iteration"]), eval_fn=lambda module: {"test_acc": 0.0},
         ckpt=ckpt, writer=writer,
         log_freq=int(cfg.get("log_freq", 100)),
         test_freq=int(cfg.get("test_freq", 10 ** 9)),
-        save_freq=int(cfg.get("save_freq", 0)) or None)
-    writer.close()
+        save_freq=int(cfg.get("save_freq", 0)) or None,
+        mesh=mesh)
+    if writer is not None:
+        writer.close()
     return state
 
 

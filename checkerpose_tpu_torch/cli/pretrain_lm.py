@@ -11,7 +11,8 @@ own object's KNN graph, gathered from the stacked (O, N, K) table by
 <check_point_path>/<cfg_name>/lm13, where the LM train CLI's
 `init_pretrained_root` finds them. The backbone graft of
 `backbone_pretrain_checkpoint` runs at step 0. Runs on the card unless
-`--device cpu` (or cfg `device`) says otherwise.
+`--device cpu` (or cfg `device`) says otherwise; data-parallel under torchrun
+(see cli/train.py).
 """
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ import numpy as np
 
 from checkerpose_tpu_torch.cli import common
 from checkerpose_tpu_torch.cli.pretrain import build_init_net
-from checkerpose_tpu_torch.device import resolve_device
 from checkerpose_tpu_torch.eval.harness import evaluate_init
 from checkerpose_tpu_torch.models.posenet import knn_tensor
+from checkerpose_tpu_torch.parallel.mesh import make_mesh
 from checkerpose_tpu_torch.train import steps
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.loop import run_training
@@ -34,7 +35,8 @@ from checkerpose_tpu_torch.utils.logging import MetricWriter
 def main(cfg):
     """Pretrain as cfg (from `common.resolve_cfg_lm`) says; returns the
     final TrainState."""
-    dev = resolve_device(cfg.get("device", "cuda"))
+    mesh = make_mesh(cfg.get("device", "cuda"))
+    dev = mesh.device
     p3d_table, _, knn_np = common.load_keypoints_lm(cfg)
     net = build_init_net(cfg, knn_np.shape[1])
     crop_gt = int(cfg.get("BoundingBox_CropSize_GT", 128))
@@ -44,7 +46,7 @@ def main(cfg):
     state = create_init_state(net, opt, device=dev)
     print(f"#parameters: {param_count(net):.2f}M", flush=True)
 
-    ckpt = CheckpointManager(cfg["check_point_path"])
+    ckpt = CheckpointManager(cfg["check_point_path"], mesh=mesh)
     if cfg.get("load_checkpoint", False) and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
@@ -52,7 +54,7 @@ def main(cfg):
     state = common.maybe_graft_pretrained_backbone(cfg, state)
 
     knn = knn_tensor(knn_np, knn_np.shape[1], dev)
-    train_loader, val_loader_factory = common.build_train_loaders_lm(cfg, p3d_table)
+    train_loader, val_loader_factory = common.build_train_loaders_lm(cfg, p3d_table, mesh=mesh)
     step = steps.make_pretrain_step(
         net, knn, crop_gt,
         mask_loss_type=cfg.get("MaskBit_Loss_Type", "BCE"),
@@ -63,7 +65,7 @@ def main(cfg):
         color_aug_prob=float(cfg.get("color_aug_prob", 0.8)),
         aux_heatmap_weight=float(cfg.get("aux_heatmap_loss_weight", 0.0)))
 
-    writer = MetricWriter(cfg["tensorboard_path"])
+    writer = MetricWriter(cfg["tensorboard_path"]) if mesh.lead else None
 
     def eval_fn(module):
         # one sweep per object, then the mean over the objects (the
@@ -79,8 +81,10 @@ def main(cfg):
         ckpt=ckpt, writer=writer,
         log_freq=int(cfg.get("log_freq", 1000)),
         test_freq=int(cfg.get("test_freq", 10000)),
-        save_freq=int(cfg.get("save_freq", 0)) or None)
-    writer.close()
+        save_freq=int(cfg.get("save_freq", 0)) or None,
+        mesh=mesh)
+    if writer is not None:
+        writer.close()
     return state
 
 

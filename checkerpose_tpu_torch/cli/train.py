@@ -12,6 +12,14 @@ checkpoint gated on 1 - mean per-bit error. The per-run decisions follow the
 JAX CLI: teacher forcing annealed at the resume step, the prefix-correct
 fine-bit mask and the fine-bit loss boost switched on at their steps. Runs on
 the card unless `--device cpu` (or cfg `device`) says otherwise.
+
+Data-parallel over W cards of a node (NCCL; gloo with `--device cpu`), the
+batch size staying the global one (parallel/mesh.py):
+
+  torchrun --nproc_per_node W -m checkerpose_tpu_torch.cli.train --cfg <cfg.txt> --obj_name ape
+
+The same holds for the other training CLIs (pretrain, pretrain_lm, train_lm,
+pretrain_backbone). Without torchrun's environment the CLI runs one process.
 """
 from __future__ import annotations
 
@@ -24,10 +32,10 @@ from checkerpose_tpu_torch.cli import common
 from checkerpose_tpu_torch.cli.pretrain import cfg_from_args, print_bit_err
 from checkerpose_tpu_torch.cli.pretrain import parse_args as parse_training_args
 from checkerpose_tpu_torch.config import get_train_stage, stage_start_steps
-from checkerpose_tpu_torch.device import resolve_device
 from checkerpose_tpu_torch.eval.harness import evaluate_pipeline
 from checkerpose_tpu_torch.models.init_net import InitNet
 from checkerpose_tpu_torch.models.posenet import PoseNet, knn_tensor
+from checkerpose_tpu_torch.parallel.mesh import make_mesh
 from checkerpose_tpu_torch.train import steps
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.loop import run_training
@@ -155,7 +163,8 @@ def gated(rep):
 
 def main(cfg):
     """Train as cfg says; returns the final TrainState."""
-    dev = resolve_device(cfg.get("device", "cuda"))
+    mesh = make_mesh(cfg.get("device", "cuda"))
+    dev = mesh.device
     xyz, normed, knn_np = common.load_keypoints(cfg)
     net = build_pose_net(cfg, xyz.shape[0])
     opt = make_optimizer(float(cfg["learning_rate"]), cfg.get("learning_rate2"),
@@ -163,19 +172,19 @@ def main(cfg):
     state = create_pose_state(net, opt, init_params=load_pretrained_init(cfg), device=dev)
     print(f"#parameters: {param_count(net):.2f}M", flush=True)
 
-    ckpt = CheckpointManager(cfg["check_point_path"])
+    ckpt = CheckpointManager(cfg["check_point_path"], mesh=mesh)
     if cfg.get("load_checkpoint", False) and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
 
     knn = knn_tensor(knn_np, xyz.shape[0], dev)
-    train_loader, val_loader_factory = common.build_train_loaders(cfg, xyz)
+    train_loader, val_loader_factory = common.build_train_loaders(cfg, xyz, mesh=mesh)
     starts = stage_starts(cfg, net.num_refine_steps)
     step_fns = {stage: steps.make_train_step(net, knn, stage=stage, **kw)
                 for stage, kw in step_options(cfg, int(state.step),
                                               net.num_refine_steps).items()}
 
-    writer = MetricWriter(cfg["tensorboard_path"])
+    writer = MetricWriter(cfg["tensorboard_path"]) if mesh.lead else None
     diameter = common.object_diameter(cfg)
     p3dn = normed.astype(np.float32)
 
@@ -195,8 +204,10 @@ def main(cfg):
         test_freq=int(cfg.get("test_freq", 1000)),
         save_freq=int(cfg.get("save_freq", 0)) or None,
         get_stage=lambda s: max(1, get_train_stage(s, starts)),
-        extra_batch=lambda batch: common.attach_p3d(batch, p3dn))
-    writer.close()
+        extra_batch=lambda batch: common.attach_p3d(batch, p3dn),
+        mesh=mesh)
+    if writer is not None:
+        writer.close()
     return state
 
 

@@ -16,7 +16,7 @@ object-averaged per-bit errors, and gates the best checkpoint on
 1 - mean(bit_err). `network_type = vanilla_GNNskip_ABwoProg` selects the
 no-progressive-localization ablation (models/ablation.py), trained on the
 full code width at every stage. Runs on the card unless `--device cpu` (or
-cfg `device`) says otherwise.
+cfg `device`) says otherwise; data-parallel under torchrun (see cli/train.py).
 """
 from __future__ import annotations
 
@@ -30,10 +30,10 @@ from checkerpose_tpu_torch.cli.pretrain_lm import parse_args as parse_training_a
 from checkerpose_tpu_torch.cli.train import load_pretrained_init, stage_starts, step_options
 from checkerpose_tpu_torch.config import get_train_stage
 from checkerpose_tpu_torch.data.bop_io import load_models_info
-from checkerpose_tpu_torch.device import resolve_device
 from checkerpose_tpu_torch.eval.harness import evaluate_pipeline
 from checkerpose_tpu_torch.models.ablation import PoseNetWoProg
 from checkerpose_tpu_torch.models.posenet import PoseNet, knn_tensor
+from checkerpose_tpu_torch.parallel.mesh import make_mesh
 from checkerpose_tpu_torch.train import steps
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.loop import run_training
@@ -69,7 +69,8 @@ def build_pose_net_lm(cfg, npoint: int, dtype=torch.bfloat16):
 def main(cfg):
     """Train as cfg (from `common.resolve_cfg_lm`) says; returns the final
     TrainState."""
-    dev = resolve_device(cfg.get("device", "cuda"))
+    mesh = make_mesh(cfg.get("device", "cuda"))
+    dev = mesh.device
     p3d_table, p3dn_stack, knn_np = common.load_keypoints_lm(cfg)
     npoint = p3dn_stack.shape[1]
     net, full_bits = build_pose_net_lm(cfg, npoint)
@@ -78,19 +79,19 @@ def main(cfg):
     state = create_pose_state(net, opt, init_params=load_pretrained_init(cfg), device=dev)
     print(f"#parameters: {param_count(net):.2f}M", flush=True)
 
-    ckpt = CheckpointManager(cfg["check_point_path"])
+    ckpt = CheckpointManager(cfg["check_point_path"], mesh=mesh)
     if cfg.get("load_checkpoint", False) and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
 
     knn = knn_tensor(knn_np, npoint, dev)
-    train_loader, val_loader_factory = common.build_train_loaders_lm(cfg, p3d_table)
+    train_loader, val_loader_factory = common.build_train_loaders_lm(cfg, p3d_table, mesh=mesh)
     starts = stage_starts(cfg, net.num_refine_steps)
     step_fns = {stage: steps.make_train_step(net, knn, stage=stage, **kw)
                 for stage, kw in step_options(cfg, int(state.step), net.num_refine_steps,
                                               full_bits, net.res_log2).items()}
 
-    writer = MetricWriter(cfg["tensorboard_path"])
+    writer = MetricWriter(cfg["tensorboard_path"]) if mesh.lead else None
     id_to_name = {oid: n for n, oid in zip(cfg["obj_names"], cfg["obj_ids"])}
     minfo = load_models_info(cfg["bop_path"], cfg["dataset_name"])
     p3dn = p3dn_stack.astype(np.float32)
@@ -128,8 +129,10 @@ def main(cfg):
         test_freq=int(cfg.get("test_freq", 10000)),
         save_freq=int(cfg.get("save_freq", 0)) or None,
         get_stage=lambda s: max(1, get_train_stage(s, starts)),
-        extra_batch=lambda batch: common.attach_p3d(batch, p3dn))
-    writer.close()
+        extra_batch=lambda batch: common.attach_p3d(batch, p3dn),
+        mesh=mesh)
+    if writer is not None:
+        writer.close()
     return state
 
 

@@ -1,6 +1,6 @@
 """Crop dataset + host input pipeline (counterpart of
-checkerpose_tpu/data/dataset.py: `CropDataset`'s python item path, `Loader`,
-`MixedLoader`, `mixed_batch_sizes`).
+checkerpose_tpu/data/dataset.py: `CropDataset`, `Loader`, `MixedLoader`,
+`mixed_batch_sizes`).
 
 Host side (here): frame read, bbox selection (train jitter / test padding or
 detector box), crop + resize, keypoint projection, and the train-time
@@ -14,8 +14,12 @@ Frames and masks come from the frame cache when one is given
 lm_imgn renders (`data/lm_imgn.py`) take both masks from depth > 0. The
 multi-object variant passes a {obj_id: (N, 3)} keypoint table: each item
 then carries `obj_idx`, its object's row in the stacked keypoint and graph
-tables. Not ported: the native C++ decode + crop core of the JAX package
-(`native_loader.py`; ROADMAP queues it).
+tables.
+
+With frames on disk and no frame cache, the native C++ core
+(`data/native_loader.py`) decodes and crops instead, an item a call or, through
+`get_batch`, a whole batch a call over its thread pool; `Loader` takes that
+batch API when the dataset offers it.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from checkerpose_tpu_torch.data import native_loader
 from checkerpose_tpu_torch.data.bop_io import Sample
 from checkerpose_tpu_torch.data.imageio import read_depth_png, read_image
 from checkerpose_tpu_torch.ops import geometry
@@ -39,7 +44,7 @@ class CropDataset:
                  padding_ratio: float = 1.5, resize_method: str = "crop_square_resize",
                  use_detections: bool = False, seed: int = 0,
                  bg_paths: Optional[List[str]] = None, change_bg_prob: float = 0.0,
-                 frame_cache=None):
+                 use_native: Optional[bool] = None, frame_cache=None):
         """p3d_xyz: (N, 3) keypoints shared by all samples, or a
         {obj_id: (N, 3)} table for the multi-object variant; items then carry
         `obj_idx`, the object's rank among the sorted ids (the row of the
@@ -49,7 +54,13 @@ class CropDataset:
         reference's VOC background swap, `lm_dataset_pytorch.py:489-523`):
         the pixels outside the full mask take a random background image's,
         always for "syn" samples and with probability change_bg_prob for the
-        others."""
+        others.
+
+        use_native: decode and crop through the native core (None: wherever
+        it builds and neither a background swap, which needs the whole
+        frame's mask, nor a frame cache, which already skips the decode, is
+        on). Samples with a depth_path (lm_imgn renders) keep the python
+        path, and so does a sample the core cannot decode."""
         self.samples = samples
         if isinstance(p3d_xyz, dict):
             self.p3d_table = {k: np.asarray(v, np.float64) for k, v in p3d_xyz.items()}
@@ -62,6 +73,9 @@ class CropDataset:
         self.bg_paths = bg_paths
         self.change_bg_prob = change_bg_prob
         self.frame_cache = frame_cache
+        if use_native is None:
+            use_native = not bg_paths and frame_cache is None
+        self.use_native = bool(use_native) and not bg_paths and native_loader.available()
         self.is_train = is_train
         self.crop_size_img = crop_size_img
         self.crop_size_gt = crop_size_gt
@@ -146,6 +160,18 @@ class CropDataset:
         s = self.samples[index]
         if self.use_detections and s.detect_bbox is None:
             return self.dummy_item(s)
+        if self.use_native and not s.depth_path:
+            bbox = self._choose_bbox(s)
+            try:
+                return self._native_item(s, bbox)
+            except OSError as e:
+                print(f"native loader: {e}; reading {s.rgb_path} in python", flush=True)
+            return self._python_item(s, bbox)
+        return self._python_item(s)
+
+    def _python_item(self, s: Sample, bbox=None) -> Dict[str, np.ndarray]:
+        """The item through the python decode and crop; `bbox` when already
+        drawn."""
         decoded = self._read_sample(s)
         if decoded is None:
             print(f"cannot load sample {s.rgb_path}", flush=True)
@@ -157,7 +183,8 @@ class CropDataset:
         if self.is_train and self.bg_paths and (
                 s.img_type == "syn" or self.rng.random() < self.change_bg_prob):
             bg_path = self.bg_paths[int(self.rng.integers(len(self.bg_paths)))]
-        bbox = self._choose_bbox(s)
+        if bbox is None:
+            bbox = self._choose_bbox(s)
         if bg_path is not None:
             img = self._replace_bg(img, mask_full, bg_path, bbox)
         roi_img = get_roi_np(img, bbox, self.crop_size_img, "linear", self.resize_method)
@@ -168,6 +195,59 @@ class CropDataset:
             roi_mv.astype(np.float32) / 255.0,
             roi_mf.astype(np.float32) / 255.0,
             bbox, 1.0, img.shape[1], img.shape[0])
+
+    def _native_item(self, s: Sample, bbox) -> Dict[str, np.ndarray]:
+        """One C++ call: decode, square crop and resize (cv2's geometry,
+        native/loadercore.cpp); raises OSError when a file does not decode."""
+        img, mf, mv, (w, h) = native_loader.load_sample(
+            s.rgb_path, s.mask_path, s.mask_visib_path, bbox, self.crop_size_img,
+            self.crop_size_gt)
+        return self._sample_dict(s, img, mv, mf, bbox, 1.0, w, h)
+
+    def supports_batch(self) -> bool:
+        """True when `get_batch` can assemble whole batches in one native
+        call. That call reports no image sizes, so only the square resize
+        methods qualify (their final bbox ignores them)."""
+        return self.use_native and self.resize_method in _SQUARE_METHODS
+
+    def get_batch(self, indices) -> Dict[str, np.ndarray]:
+        """The stacked items of `indices`, the native ones decoded and
+        cropped in one call over the core's thread pool. Missing detections
+        give dummy items, lm_imgn samples take the python path; a sample
+        the core fails on is zero-filled and comes out with valid = 0 (its
+        visible mask is empty, which a real sample's never is: the manifest
+        filters on the visible fraction). The random draws go in the JAX
+        package's order: the python items first, then the native items'
+        bboxes."""
+        if not self.supports_batch():
+            raise ValueError("get_batch needs the native core and a square resize method "
+                             "(the batch call reports no image sizes, which "
+                             f"{self.resize_method!r} needs for its final bbox)")
+        items: List[Optional[Dict[str, np.ndarray]]] = [None] * len(indices)
+        native = []
+        for i, j in enumerate(indices):
+            s = self.samples[int(j)]
+            if self.use_detections and s.detect_bbox is None:
+                items[i] = self.dummy_item(s)
+            elif s.depth_path:
+                items[i] = self._python_item(s)
+            else:
+                native.append((i, s))
+        if native:
+            bboxes = np.stack([self._choose_bbox(s) for _, s in native])
+            imgs, mf, mv, n_fail = native_loader.load_batch(
+                [s.rgb_path for _, s in native], [s.mask_path for _, s in native],
+                [s.mask_visib_path for _, s in native], bboxes, self.crop_size_img,
+                self.crop_size_gt)
+            if n_fail:
+                print(f"native loader: {n_fail} failed decodes zero-filled", flush=True)
+            for n, (i, s) in enumerate(native):
+                b = bboxes[n]
+                # a placeholder image size: the square methods' final bbox ignores it
+                items[i] = self._sample_dict(s, imgs[n], mv[n], mf[n], b,
+                                             1.0 if mv[n].max() > 0 else 0.0,
+                                             int(b[0] + b[2] + 1), int(b[1] + b[3] + 1))
+        return _stack(items)
 
     def _replace_bg(self, img, mask_full, bg_path: str, bbox):
         """img with the pixels outside the full mask (<= 127) taken from the
@@ -190,6 +270,9 @@ class CropDataset:
         return out
 
 
+_SQUARE_METHODS = ("crop_square_resize", "crop_resize_by_warp_affine")
+
+
 def _stack(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
@@ -197,7 +280,9 @@ def _stack(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 class Loader:
     """Infinite shuffled (train) or single-pass (eval) batch iterator with
     background-thread prefetch. A short last batch is padded by repeating
-    the order from its start; `n_real` says how many rows are real."""
+    the order from its start; `n_real` says how many rows are real. A
+    dataset whose `supports_batch()` is true assembles each batch itself
+    (`get_batch`)."""
 
     def __init__(self, dataset: CropDataset, batch_size: int, *, shuffle: bool,
                  drop_last: bool = True, prefetch: int = 4, seed: int = 0,
@@ -229,13 +314,18 @@ class Loader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
+        supports_batch = getattr(self.ds, "supports_batch", None)
+        use_batch_api = supports_batch is not None and supports_batch()
 
         def worker():
             # an exception goes to the consumer; a thread that died silently
             # would leave q.get() waiting forever
             try:
                 for chunk, n_real in self._index_stream():
-                    batch = _stack([self.ds[int(j)] for j in chunk])
+                    if use_batch_api:
+                        batch = self.ds.get_batch(chunk)
+                    else:
+                        batch = _stack([self.ds[int(j)] for j in chunk])
                     batch["n_real"] = np.int32(n_real)
                     q.put(batch)
                 q.put(stop)

@@ -38,6 +38,11 @@ class InitNet(nn.Module):
                                                    graph_leaky_slope, dtype=dtype))
         self.mlp = Dense(_GRID_FEAT, 1 + 2 * res_log2, dtype=torch.float32)
 
+    @property
+    def num_out_bits(self) -> int:
+        """Bit logits a keypoint: the RoI bit, then res_log2 for x and for y."""
+        return 1 + 2 * self.res_log2
+
     def forward(self, img, knn_idx):
         """img (B, 3, H, W) normalized; knn_idx (N, K) int32.
 

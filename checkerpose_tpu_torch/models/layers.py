@@ -158,13 +158,22 @@ class BatchNorm(nn.Module):
     var = max(0, mean(x^2) - mean(x)^2); it normalises with that biased
     variance and stores it: running = 0.9 * running + 0.1 * batch, in place
     and outside the graph. (`F.batch_norm` stores the unbiased variance, and
-    its `momentum` is one minus Flax's.)"""
+    its `momentum` is one minus Flax's.)
+
+    `group`: a process group of more than one rank (set by
+    parallel/mesh.py::replicate_module), or None. With one, train mode takes
+    the statistics over every rank's batch, as the JAX package's global view
+    does: the per-channel sums of x and x^2 and the count go through one
+    autograd-aware all-reduce, whose backward all-reduces their gradient, so
+    the running statistics come out equal on every rank.
+    (`nn.SyncBatchNorm` would not convert this class.)"""
 
     momentum = 0.9
 
     def __init__(self, num: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num))
         self.bias = nn.Parameter(torch.zeros(num))
         self.register_buffer("running_mean", torch.zeros(num))
@@ -193,13 +202,27 @@ class BatchNorm(nn.Module):
             return (x.to(dtype) - self.running_mean.view(shape)) * mul + self.bias.view(shape)
         x = x.to(dtype)
         dims = [d for d in range(x.dim()) if d != channel_dim % x.dim()]
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        if self.group is None:
+            mean = x.mean(dims)
+            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        else:
+            mean, var = self._global_statistics(x, dims)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         mul = (torch.rsqrt(var + self.eps) * self.weight).view(shape)
         return (x - mean.view(shape)) * mul + self.bias.view(shape)
+
+    def _global_statistics(self, x, dims):
+        """(mean, var) over `dims` of every rank's x, Flax's formula."""
+        from torch.distributed.nn.functional import all_reduce
+        C = self.weight.shape[0]
+        count = x.new_full((1,), float(x.numel() // C))
+        stats = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims), count]),
+                           group=self.group)
+        mean = stats[:C] / stats[-1]
+        var = (stats[C:2 * C] / stats[-1] - mean * mean).clamp_min(0.0)
+        return mean, var
 
 
 class LayerNorm(nn.Module):

@@ -180,6 +180,14 @@ def draw_color_augment(gen: torch.Generator, B: int, H: int, W: int,
     return params
 
 
+def rows_of(params, rows: slice):
+    """The parameters that `draw_color_augment` drew for the given rows of
+    its batch (every parameter's leading axis is the batch)."""
+    return {k: None if v is None else
+            (v[rows] if isinstance(v, torch.Tensor) else tuple(t[rows] for t in v))
+            for k, v in params.items()}
+
+
 def apply_color_augment(img, params):
     """The chain with given parameters: each op where its gate is set, the
     clip to [0, 255], and the whole where the outer gate is set. Every

@@ -1,6 +1,7 @@
-"""Crop + resize on the host and image normalization on the device
+"""Crop + resize on the host and on the device, and image normalization
 (counterpart of checkerpose_tpu/ops/crop.py: `crop_square_resize_np`,
-`crop_resize_np`, `get_roi_np`, `normalize_image`).
+`crop_resize_np`, `get_roi_np`, `crop_bilinear`, `crop_nearest`,
+`normalize_image`).
 
 The host crop keeps the reference data pipeline's geometry
 (`checkerpose/bop_dataset_pytorch.py:39-144`), int truncation of the corners
@@ -23,6 +24,75 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 _COEF_BITS = 11                      # OpenCV's INTER_RESIZE_COEF_BITS
 _COEF_ONE = 1 << _COEF_BITS
+
+
+def _batched(crop):
+    """Run a (B, H, W, ...) / (B, 4) crop on one image and bbox too."""
+    def wrapped(img, bbox, crop_size: int):
+        bbox = torch.as_tensor(bbox, dtype=torch.float32, device=img.device)
+        if bbox.dim() == 1:
+            return crop(img[None], bbox[None], crop_size)[0]
+        return crop(img, bbox, crop_size)
+    wrapped.__doc__ = crop.__doc__
+    return wrapped
+
+
+def _valid(yi, xi, H: int, W: int):
+    """(B, S, S) bool: the taps at rows yi (B, S) and columns xi (B, S) that
+    lie inside the image."""
+    return ((yi >= 0) & (yi < H))[:, :, None] & ((xi >= 0) & (xi < W))[:, None, :]
+
+
+def _taps(img, yi, xi):
+    """img (B, H, W, ...) read at rows yi (B, S) x columns xi (B, S), both
+    clamped into the image -> (B, S, S, ...)."""
+    H, W = img.shape[1:3]
+    b = torch.arange(img.shape[0], device=img.device)[:, None, None]
+    return img[b, yi.clamp(0, H - 1)[:, :, None], xi.clamp(0, W - 1)[:, None, :]]
+
+
+@_batched
+def crop_bilinear(img: torch.Tensor, bbox: torch.Tensor, crop_size: int) -> torch.Tensor:
+    """Bilinear crop + resize on the device: an HWC image (or a (B, H, W, C)
+    batch) and its final, already squared bbox [x, y, w, h] ((4,) or (B, 4))
+    -> (crop_size, crop_size, C) (or (B, ...)), in the image's floating
+    dtype (f32 for an integer image).
+
+    cv2.resize(INTER_LINEAR)'s geometry on the zero-padded square crop:
+    output pixel i samples (i + 0.5) * w / S - 0.5 + x; a tap outside the
+    image reads 0 (the reference zero-pads)."""
+    H, W = img.shape[1:3]
+    S = crop_size
+    i = torch.arange(S, dtype=torch.float32, device=img.device)
+    sx = (i + 0.5) * (bbox[:, 2:3] / S) - 0.5 + bbox[:, 0:1]            # (B, S)
+    sy = (i + 0.5) * (bbox[:, 3:4] / S) - 0.5 + bbox[:, 1:2]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wx = (sx - x0)[:, None, :, None]                                    # (B, 1, S, 1)
+    wy = (sy - y0)[:, :, None, None]                                    # (B, S, 1, 1)
+    x0, y0 = x0.long(), y0.long()
+    dtype = img.dtype if img.is_floating_point() else torch.float32
+
+    def tap(yi, xi):
+        return _taps(img, yi, xi).to(dtype) * _valid(yi, xi, H, W)[..., None].to(dtype)
+
+    return (tap(y0, x0) * (1 - wy) * (1 - wx)
+            + tap(y0, x0 + 1) * (1 - wy) * wx
+            + tap(y0 + 1, x0) * wy * (1 - wx)
+            + tap(y0 + 1, x0 + 1) * wy * wx)
+
+
+@_batched
+def crop_nearest(img: torch.Tensor, bbox: torch.Tensor, crop_size: int) -> torch.Tensor:
+    """Nearest-neighbour crop + resize on the device of an HW mask (or a
+    (B, H, W) batch) by its final bbox -> (crop_size, crop_size) in the
+    mask's dtype: output pixel i reads floor(i * w / S + x), as
+    cv2.INTER_NEAREST does; outside the image it reads 0."""
+    H, W = img.shape[1:3]
+    S = crop_size
+    i = torch.arange(S, dtype=torch.float32, device=img.device)
+    sx = torch.floor(i * (bbox[:, 2:3] / S) + bbox[:, 0:1]).long()
+    sy = torch.floor(i * (bbox[:, 3:4] / S) + bbox[:, 1:2]).long()
+    return _taps(img, sy, sx) * _valid(sy, sx, H, W).to(img.dtype)
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:

@@ -104,6 +104,26 @@ def farthest_point_sample(xyz: np.ndarray, npoint: int, init_center: bool = True
     return idx
 
 
+def roi_grid(crop_size_gt: int) -> np.ndarray:
+    """(h, w, 2) f32 grid of the (x, y) pixel coordinates inside the GT crop
+    (the reference's `bop_dataset_pytorch.py:265-269`)."""
+    r = np.arange(crop_size_gt, dtype=np.float32)
+    gx, gy = np.meshgrid(r, r)                  # both (h, w); gx varies along w
+    return np.stack([gx, gy], axis=-1)
+
+
+def map_crop_to_original(pixels, bbox, crop_size: int):
+    """Crop-grid pixel coordinates (..., 2) -> original-image coordinates:
+    bbox_wh / crop_size * pixel + bbox_xy (the reference's
+    `bop_dataset_pytorch.py:223-235`). numpy arrays or tensors (then bbox a
+    tensor too), any leading axes; bbox (4,) [x, y, w, h]."""
+    if isinstance(pixels, torch.Tensor):
+        ratio = torch.stack([bbox[2] / crop_size, bbox[3] / crop_size])
+    else:
+        ratio = np.array([bbox[2] / crop_size, bbox[3] / crop_size])
+    return pixels * ratio + bbox[:2]
+
+
 def crop_cell_sizes(bbox: torch.Tensor, crop_size_gt: int):
     """(px, py, degenerate), each (B, 1): the size in original-image pixels
     of one cell of the crop_size_gt grid over bbox (B, 4) [x, y, w, h]; a

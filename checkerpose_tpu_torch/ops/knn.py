@@ -1,8 +1,10 @@
-"""Static KNN graph over the 3D keypoints (numpy copy of
-checkerpose_tpu/ops/knn.py::knn_index)."""
+"""Static KNN graph over the 3D keypoints (counterpart of
+checkerpose_tpu/ops/knn.py: `knn_index` in numpy, `gather_graph_feature`
+in torch)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def knn_index(points, k: int) -> np.ndarray:
@@ -15,6 +17,16 @@ def knn_index(points, k: int) -> np.ndarray:
     d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
     idx = np.argsort(d2, axis=-1, kind="stable")[:, :k]
     return idx.astype(np.int32)
+
+
+def gather_graph_feature(x: torch.Tensor, knn_idx) -> torch.Tensor:
+    """EdgeConv's edge features concat([x_j - x_i, x_i]) over each node's
+    neighbours: x (B, N, C) channel-last, knn_idx a static (N, K) int graph
+    -> (B, N, K, 2C). (The EdgeConv layers of the port never build this
+    tensor: ops/edgeconv.py splits its weights instead.)"""
+    xj = x[:, torch.as_tensor(knn_idx, device=x.device).long()]            # (B, N, K, C)
+    xi = x[:, :, None, :].expand_as(xj)
+    return torch.cat([xj - xi, xi], dim=-1)
 
 
 def check_knn(knn_idx, npoint: int) -> np.ndarray:

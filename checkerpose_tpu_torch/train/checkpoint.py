@@ -8,9 +8,14 @@ score. The payload is {model, optimizer, step, best_score}: the module's and
 the optimizer's `state_dict()`. Saves are synchronous (the JAX package's are
 asynchronous): `save` returns when the file is in place, written under a
 temporary name and renamed, and `wait()` has nothing to wait for.
+
+Under data parallelism (`mesh`, parallel/mesh.py) every rank holds the same
+state: rank 0 writes and the others wait at a barrier until the files are in
+place; every rank restores the same files after a barrier.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -18,6 +23,7 @@ from typing import List, Optional
 
 import torch
 
+from checkerpose_tpu_torch.parallel.mesh import Mesh, barrier
 from checkerpose_tpu_torch.train.state import TrainState
 
 _FILE = "state.pt"
@@ -46,27 +52,40 @@ def _save(root: str, state: TrainState, max_to_keep: int):
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str, max_to_keep: int = 3):
+    def __init__(self, ckpt_dir: str, max_to_keep: int = 3, mesh: Optional[Mesh] = None):
+        """`mesh`: every rank constructs the manager and calls each method
+        (they meet at barriers); rank 0 alone writes."""
         self.dir = os.path.abspath(ckpt_dir)
         self.best_dir = os.path.join(self.dir, "best")
         self.max_to_keep = max_to_keep
-        os.makedirs(self.best_dir, exist_ok=True)
+        self.mesh = mesh
+        if self._writes():
+            os.makedirs(self.best_dir, exist_ok=True)
+        barrier(mesh)
+
+    def _writes(self) -> bool:
+        return self.mesh is None or self.mesh.lead
 
     def save(self, state: TrainState):
-        _save(self.dir, state, self.max_to_keep)
+        if self._writes():
+            _save(self.dir, state, self.max_to_keep)
+        barrier(self.mesh)
 
     def save_best(self, state: TrainState, metric: str = "test_acc"):
-        _save(self.best_dir, state, 1)
-        # Side record of the best score, so that rolling checkpoints saved
-        # before an eval (train/loop.py saves first) cannot stale it: restore
-        # takes max(checkpoint's best_score, this file). It is tagged with
-        # the gate metric, because a score only compares with scores of the
-        # same metric. Written under a temporary name and renamed.
-        tmp = os.path.join(self.dir, ".best_score.json.tmp")
-        with open(tmp, "w") as f:
-            json.dump({"step": int(state.step), "best_score": float(state.best_score),
-                       "metric": metric}, f)
-        os.replace(tmp, os.path.join(self.dir, "best_score.json"))
+        if self._writes():
+            _save(self.best_dir, state, 1)
+            # Side record of the best score, so that rolling checkpoints saved
+            # before an eval (train/loop.py saves first) cannot stale it:
+            # restore takes max(checkpoint's best_score, this file). It is
+            # tagged with the gate metric, because a score only compares with
+            # scores of the same metric. Written under a temporary name and
+            # renamed.
+            tmp = os.path.join(self.dir, ".best_score.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump({"step": int(state.step), "best_score": float(state.best_score),
+                           "metric": metric}, f)
+            os.replace(tmp, os.path.join(self.dir, "best_score.json"))
+        barrier(self.mesh)
 
     def _record(self) -> dict:
         try:
@@ -100,6 +119,7 @@ class CheckpointManager:
 
     def restore_raw(self, step: Optional[int] = None, best: bool = False) -> dict:
         """The payload as saved, on the CPU, for cross-model weight grafts."""
+        barrier(self.mesh)
         root = self.best_dir if best else self.dir
         if step is None:
             steps = _steps(root)
@@ -115,8 +135,7 @@ class CheckpointManager:
         best_score = float(raw["best_score"])
         if not best:
             best_score = max(best_score, self._best_score_floor())
-        return TrainState(module=state.module, optimizer=state.optimizer,
-                          step=int(raw["step"]), best_score=best_score)
+        return dataclasses.replace(state, step=int(raw["step"]), best_score=best_score)
 
     def restore(self, state: TrainState, step: Optional[int] = None,
                 best: bool = False) -> TrainState:

@@ -5,10 +5,14 @@ An endless step loop over the loader, loss logging every `log_freq` steps,
 a rolling keep-3 checkpoint every `save_freq` steps and, every `test_freq`
 steps, a validation sweep that gates the best checkpoint.
 
-Not carried over from the JAX package: the device mesh with its batch
-sharding and state replication (data parallelism is queued in ROADMAP.md),
-and the periodic deletion of input buffers under `sync_freq`, which worked
-around the runtime of that package's remote TPU client. PyTorch's caching
+Data parallelism (`mesh`, parallel/mesh.py; the JAX loop's mesh): every
+rank runs this loop over its own loader, which yields its rows of each
+global batch. The module is replicated from rank 0, the steps sum the
+gradients over the ranks (train/steps.py), rank 0 alone writes checkpoints,
+metrics and log lines, and rank 0 alone runs `eval_fn` (as JAX's harness
+evaluates unsharded) while the others wait for its gate score. Not carried
+over: the periodic deletion of input buffers under `sync_freq`, which worked
+around the runtime of the JAX package's remote TPU client. PyTorch's caching
 allocator frees a batch when its last reference goes, so the loop only
 bounds how far the host may run ahead of the card.
 """
@@ -19,6 +23,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
+from checkerpose_tpu_torch.parallel.mesh import Mesh, from_lead, make_global_batch, replicate_module
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.state import TrainState
 from checkerpose_tpu_torch.utils.logging import MetricWriter
@@ -30,7 +35,8 @@ def run_training(*, state: TrainState, step_fns, loader: Iterable, total_iterati
                  save_freq: Optional[int] = None,
                  get_stage: Optional[Callable[[int], int]] = None,
                  extra_batch: Optional[Callable[[Dict], Dict]] = None,
-                 seed: int = 0, sync_freq: int = 8) -> TrainState:
+                 mesh: Optional[Mesh] = None, seed: int = 0,
+                 sync_freq: int = 8) -> TrainState:
     """Args:
       state: module (on its device, in train mode) + optimizer; trained in
         place and returned with the final step and best score.
@@ -52,11 +58,18 @@ def run_training(*, state: TrainState, step_fns, loader: Iterable, total_iterati
         best_score.json side record.
       get_stage: step -> curriculum stage.
       extra_batch: hook to add derived fields (e.g. broadcast p3d_normed).
-      seed: of the generator every step draws from.
+      mesh: the data-parallel mesh, or None for one process; `ckpt` must be
+        built with the same mesh, and `writer` is used on rank 0 only (None
+        on the others).
+      seed: of the generator every step draws from (alike on every rank).
       sync_freq: read one metric on the host every N steps, which bounds the
         work queued on the card at N batches.
     """
     module = state.module
+    lead = mesh is None or mesh.lead
+    if mesh is not None:
+        replicate_module(module, mesh)
+        state.mesh = mesh
     device = next(module.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
     # the gate's memory is resolved at the first eval from the metric-tagged
@@ -77,6 +90,8 @@ def run_training(*, state: TrainState, step_fns, loader: Iterable, total_iterati
         batch.pop("n_real", None)
         if extra_batch is not None:
             batch = extra_batch(batch)
+        if mesh is not None:
+            batch = make_global_batch(batch, mesh)
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         stage = get_stage(state.step) if get_stage else None
         metrics = step_fns[stage](state, batch, generator)
@@ -84,7 +99,7 @@ def run_training(*, state: TrainState, step_fns, loader: Iterable, total_iterati
         if step_no % sync_freq == 0:
             float(metrics["loss"])
 
-        if step_no % log_freq == 0:
+        if step_no % log_freq == 0 and lead:
             m = {k: float(v) for k, v in metrics.items()}
             dt = (time.time() - t_last) / log_freq
             t_last = time.time()
@@ -102,19 +117,23 @@ def run_training(*, state: TrainState, step_fns, loader: Iterable, total_iterati
             state.best_score = floor_or_best()
             ckpt.save(state)                 # before the eval (see save_freq)
         if step_no % test_freq == 0 or at_end:
-            module.eval()
-            try:
-                ev = eval_fn(module)
-            finally:
-                module.train()
-            writer.add_scalar("TESTDATA_ACC/ACC_test", ev["test_acc"], step_no)
-            gate = float(ev.get("gate_score", ev["test_acc"]))
-            gate_metric = str(ev.get("gate_metric", "test_acc"))
+            gate = gate_metric = None
+            if lead:
+                module.eval()
+                try:
+                    ev = eval_fn(module)
+                finally:
+                    module.train()
+                writer.add_scalar("TESTDATA_ACC/ACC_test", ev["test_acc"], step_no)
+                gate = float(ev.get("gate_score", ev["test_acc"]))
+                gate_metric = str(ev.get("gate_metric", "test_acc"))
+            gate, gate_metric = from_lead((gate, gate_metric), mesh)
             if best is None:
                 best = ckpt.best_floor(gate_metric)
-            print(f"eval @ {step_no}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in ev.items() if isinstance(v, (int, float)))
-                + f" gate[{gate_metric}]={gate:.4f} (best {best:.4f})", flush=True)
+            if lead:
+                print(f"eval @ {step_no}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in ev.items() if isinstance(v, (int, float)))
+                    + f" gate[{gate_metric}]={gate:.4f} (best {best:.4f})", flush=True)
             if gate > best:
                 best = gate
                 state.best_score = best

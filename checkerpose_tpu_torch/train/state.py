@@ -15,14 +15,26 @@ import torch.nn as nn
 
 from checkerpose_tpu_torch.device import resolve_device
 from checkerpose_tpu_torch.models.layers import init_params
+from checkerpose_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
 class TrainState:
+    """`mesh`: the data-parallel mesh the module is replicated over
+    (parallel/mesh.py; `train/loop.py::run_training` sets it), which the
+    steps read; None for one process."""
     module: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     best_score: float = -1.0
+    mesh: Optional[Mesh] = None
+
+    def variables(self) -> dict:
+        """{"params", "batch_stats"}: the module's parameters and its
+        BatchNorm running statistics by name (Flax's two collections; the
+        tensors themselves, not copies)."""
+        return {"params": dict(self.module.named_parameters()),
+                "batch_stats": dict(self.module.named_buffers())}
 
 
 class TwoPhaseAdam(torch.optim.Adam):

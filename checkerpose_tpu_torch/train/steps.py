@@ -25,6 +25,20 @@ variant, the stacked (O, N, K) table of every object's graph, which
 `knn_for_batch` gathers per sample by `batch["obj_idx"]`. The dense NOCS
 step (`make_nocs_train_step`) pretrains a backbone with labels that
 `nocs_labels` back-projects from a depth crop rendered on the device.
+
+Under data parallelism (`state.mesh`, parallel/mesh.py, set by
+`train/loop.py::run_training`) each rank holds its rows of the global batch
+and a step computes what the one-process step computes on the concatenated
+batch: every random draw (the colour augmentation, the teacher-forcing mask)
+is made at the global batch's shape from a generator seeded alike on every
+rank, each rank keeping its own rows; every loss is the rank's part of the
+global loss (losses/__init__.py's `group`); BatchNorm takes global
+statistics; `_update` sums the gradients over the ranks before the
+optimizer, and the metrics come back summed, i.e. global. The all-reduce is
+explicit rather than `DistributedDataParallel`: a curriculum stage leaves
+the later stages' parameters out of the graph, which DDP meets only with
+`find_unused_parameters` and a search of the graph every step, while here
+every rank gives them a zero gradient and issues the same one collective.
 """
 from __future__ import annotations
 
@@ -35,11 +49,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from checkerpose_tpu_torch.losses import (mask_loss_interpolate, masked_code_loss,
-                                          per_bit_masked_code_loss, unmasked_code_loss)
+from checkerpose_tpu_torch.losses import (global_mean, global_sum, mask_loss_interpolate,
+                                          masked_code_loss, per_bit_masked_code_loss,
+                                          unmasked_code_loss)
 from checkerpose_tpu_torch.ops import augment, codes, geometry
 from checkerpose_tpu_torch.ops.crop import normalize_image
 from checkerpose_tpu_torch.ops.raster import face_chunks, render_depth_crops
+from checkerpose_tpu_torch.parallel.mesh import all_sum_, rows
 from checkerpose_tpu_torch.train.state import TrainState
 
 
@@ -103,7 +119,7 @@ def continuous_rel_coords(batch: Dict[str, torch.Tensor], crop_size_gt: int):
 
 
 def _coord_reg_loss(x_logits, y_logits, x_rel, y_rel, roi_bit, active_bits: int,
-                    res_log2: int):
+                    res_log2: int, group=None):
     """Coordinate-space L1 between the sigmoid-expected id, E[id] = sum
     sigmoid(l_i) 2^(L-1-i), and the continuous GT coordinate at the
     active-bit resolution minus 0.5 (ids floor to the cell corner), masked by
@@ -116,40 +132,44 @@ def _coord_reg_loss(x_logits, y_logits, x_rel, y_rel, roi_bit, active_bits: int,
     tx = x_rel / scale - 0.5
     ty = y_rel / scale - 0.5
     m = roi_bit[..., 0]
-    n = m.sum().clamp_min(1.0)
+    n = global_sum(m.sum(), group).clamp_min(1.0)
     res = 2.0 ** active_bits
     return (((ex - tx).abs() * m).sum() + ((ey - ty).abs() * m).sum()) / (2.0 * n * res)
 
 
 def device_augment_normalize(images_u8, generator, use_pepper_salt, use_motion_blur,
-                             train: bool, color_aug_prob: float = 0.8):
+                             train: bool, color_aug_prob: float = 0.8, mesh=None):
     """uint8 (B, H, W, 3) crops -> augmented (train and color_aug_prob > 0
-    only) and ImageNet-normalized f32."""
+    only) and ImageNet-normalized f32. Under a mesh the augmentation is drawn
+    for the global batch and this rank applies its own rows' draws."""
     imgs = images_u8.to(torch.float32)
     if train and color_aug_prob > 0:
-        imgs = augment.color_augment(generator, imgs, use_pepper_salt, use_motion_blur,
-                                     color_aug_prob)
+        B, H, W, _ = imgs.shape
+        world = 1 if mesh is None else mesh.world
+        params = augment.draw_color_augment(generator, B * world, H, W, use_pepper_salt,
+                                            use_motion_blur, color_aug_prob)
+        imgs = augment.apply_color_augment(imgs, augment.rows_of(params, rows(B, mesh)))
     return normalize_image(imgs)
 
 
-def _masked_cell_ce(resp, cell, m):
+def _masked_cell_ce(resp, cell, m, group=None):
     """Softmax-CE of (B, N, HW) response maps at the GT cell, masked by m
     (B, N) and normalized by clamp(sum(m), 1)."""
     ce = F.cross_entropy(resp.float().flatten(0, 1), cell.flatten().long(),
                          reduction="none").view_as(m)
-    return (ce * m).sum() / m.sum().clamp_min(1.0)
+    return (ce * m).sum() / global_sum(m.sum(), group).clamp_min(1.0)
 
 
-def _aux_heatmap_loss(resp, roi_bit, x_id, y_id, total_bits: int):
+def _aux_heatmap_loss(resp, roi_bit, x_id, y_id, total_bits: int, group=None):
     """Auxiliary dense supervision of the init net's per-keypoint 8x8
     response maps: softmax-CE at the GT cell (row-major), masked by the
     in-RoI bit. resp (B, N, 64); x_id / y_id at 2**total_bits resolution."""
     shift = total_bits - 3
     cell = (y_id >> shift) * 8 + (x_id >> shift)
-    return _masked_cell_ce(resp, cell, roi_bit[..., 0])
+    return _masked_cell_ce(resp, cell, roi_bit[..., 0], group)
 
 
-def _aux_refine_loss(out, roi_bit, x_id, y_id, res_log2: int, stage: int):
+def _aux_refine_loss(out, roi_bit, x_id, y_id, res_log2: int, stage: int, group=None):
     """Dense supervision of the UpBlock maps at every active refine
     resolution: the mean over stages of the softmax-CE of
     out["refine_resp_{i}"] (B, N, HW) at the GT cell, masked by in-RoI."""
@@ -158,7 +178,8 @@ def _aux_refine_loss(out, roi_bit, x_id, y_id, res_log2: int, stage: int):
         r = 4 + i                       # up_i output is 2**(4+i) square
         shift = res_log2 - r
         cell = (y_id >> shift) * (1 << r) + (x_id >> shift)
-        total = total + _masked_cell_ce(out[f"refine_resp_{i}"], cell, roi_bit[..., 0])
+        total = total + _masked_cell_ce(out[f"refine_resp_{i}"], cell, roi_bit[..., 0],
+                                        group)
     return total / stage
 
 
@@ -184,19 +205,36 @@ def _update(state: TrainState, total):
     unused backbone branch) gets a zero gradient rather than none, so that
     Adam counts its updates from the first step on as optax does; torch's
     Adam would otherwise start that parameter's bias correction at the first
-    step it sees a gradient."""
+    step it sees a gradient. Under a process group the gradients, flattened
+    into one tensor, are summed over the ranks before the update."""
     state.optimizer.zero_grad(set_to_none=False)
     total.backward()
-    for group in state.optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if state.mesh is not None and state.mesh.group is not None:
+        flat = all_sum_(torch.cat([p.grad.reshape(-1) for p in params]), state.mesh)
+        offset = 0
+        for p in params:
+            p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+            offset += p.numel()
     state.optimizer.step()
     state.step += 1
 
 
-def _detached(metrics):
-    return {k: v.detach() for k, v in metrics.items()}
+def _batch_group(state: TrainState):
+    return None if state.mesh is None else state.mesh.batch_group
+
+
+def _reported(metrics, state: TrainState):
+    """The metrics detached; under a process group summed over the ranks
+    (each is a rank's part of a global value) in one all-reduce."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if _batch_group(state) is None:
+        return metrics
+    total = all_sum_(torch.stack([v.float() for v in metrics.values()]), state.mesh)
+    return dict(zip(metrics, total.unbind()))
 
 
 # ---------------------------------------------------------------------------
@@ -204,22 +242,23 @@ def _detached(metrics):
 # ---------------------------------------------------------------------------
 
 def pretrain_loss(net, knn_idx, imgs, batch, crop_size_gt: int, *, mask_loss_type="BCE",
-                  proj_loss_type="BCE", proj_bit_loss_weight=1.0, aux_heatmap_weight=0.0):
+                  proj_loss_type="BCE", proj_bit_loss_weight=1.0, aux_heatmap_weight=0.0,
+                  group=None):
     """Forward of an InitNet on normalized NHWC `imgs` and the pretrain
     loss: (total, metrics). In train mode the forward updates the BatchNorm
-    statistics."""
+    statistics. `group`: see losses/__init__.py."""
     total_bits = int(math.log2(crop_size_gt))
     res_log2 = net.res_log2
     roi_bit, x_id, y_id = device_labels(batch, crop_size_gt)
     gt_x, gt_y = _code_labels_bits(x_id, y_id, total_bits, res_log2)
     out_bits, _, _, resp = net(imgs.permute(0, 3, 1, 2), knn_for_batch(knn_idx, batch))
-    l_roi = unmasked_code_loss(out_bits[..., 0:1], roi_bit, mask_loss_type)
-    l_x = masked_code_loss(out_bits[..., 1:1 + res_log2], gt_x, roi_bit, proj_loss_type)
-    l_y = masked_code_loss(out_bits[..., 1 + res_log2:], gt_y, roi_bit, proj_loss_type)
+    l_roi = unmasked_code_loss(out_bits[..., 0:1], roi_bit, mask_loss_type, group)
+    l_x = masked_code_loss(out_bits[..., 1:1 + res_log2], gt_x, roi_bit, proj_loss_type, group)
+    l_y = masked_code_loss(out_bits[..., 1 + res_log2:], gt_y, roi_bit, proj_loss_type, group)
     total = l_roi + proj_bit_loss_weight * (l_x + l_y)
     metrics = {"loss": total, "loss_roi": l_roi, "loss_x": l_x, "loss_y": l_y}
     if aux_heatmap_weight:
-        l_aux = _aux_heatmap_loss(resp, roi_bit, x_id, y_id, total_bits)
+        l_aux = _aux_heatmap_loss(resp, roi_bit, x_id, y_id, total_bits, group)
         total = total + aux_heatmap_weight * l_aux
         metrics.update(loss=total, loss_aux=l_aux)
     return total, metrics
@@ -236,13 +275,13 @@ def make_pretrain_step(net, knn_idx, crop_size_gt: int, *, mask_loss_type="BCE",
         _check_training(state, net)
         imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
                                         use_motion_blur, train=True,
-                                        color_aug_prob=color_aug_prob)
+                                        color_aug_prob=color_aug_prob, mesh=state.mesh)
         total, metrics = pretrain_loss(
             net, knn_idx, imgs, batch, crop_size_gt, mask_loss_type=mask_loss_type,
             proj_loss_type=proj_loss_type, proj_bit_loss_weight=proj_bit_loss_weight,
-            aux_heatmap_weight=aux_heatmap_weight)
+            aux_heatmap_weight=aux_heatmap_weight, group=_batch_group(state))
         _update(state, total)
-        return _detached(metrics)
+        return _reported(metrics, state)
 
     return step
 
@@ -304,12 +343,12 @@ def train_loss(net, knn_idx, imgs, batch, stage: int, *, sel=None, roi_loss_type
                proj_loss_type="BCE", seg_visib_loss_weight=1.0, seg_full_loss_weight=1.0,
                full_bits=False, aux_heatmap_weight=0.0, aux_refine_weight=0.0,
                coord_reg_weight=0.0, bit_weights: Optional[Sequence[float]] = None,
-               prefix_correct_mask=False):
+               prefix_correct_mask=False, group=None):
     """Forward of a PoseNet on normalized NHWC `imgs` and the train loss:
     (total, metrics). `sel` (B, N) bool, or None, marks the keypoints whose
     refine gathers are teacher-forced; the other options are
     `make_train_step`'s. In train mode the forward updates the BatchNorm
-    statistics."""
+    statistics. `group`: see losses/__init__.py."""
     res_log2 = net.res_log2
     active_bits = res_log2 if full_bits else 3 + stage
     if bit_weights is not None and len(bit_weights) != active_bits:
@@ -322,39 +361,40 @@ def train_loss(net, knn_idx, imgs, batch, stage: int, *, sel=None, roi_loss_type
     tf = {} if sel is None else {"tf_gather": (x_id, y_id, roi_bit, sel)}
     out = net(imgs, knn_for_batch(knn_idx, batch), batch["p3d_normed"], stage=stage, **tf)
 
-    l_roi = unmasked_code_loss(out["roi_logit"], roi_bit, roi_loss_type)
+    l_roi = unmasked_code_loss(out["roi_logit"], roi_bit, roi_loss_type, group)
     metrics = {}
     if bit_weights is not None or masks_on:
         bit_masks = None
         if masks_on:
             bit_masks = _prefix_correct_masks(out, gt_x, gt_y, sel, active_bits)
             # share of in-roi keypoints whose finest-bit conditioning cell is right
-            metrics["finebit_sup_frac"] = ((bit_masks[..., -1] * roi_bit[..., 0]).sum()
-                                           / roi_bit[..., 0].sum().clamp_min(1.0))
+            metrics["finebit_sup_frac"] = (
+                (bit_masks[..., -1] * roi_bit[..., 0]).sum()
+                / global_sum(roi_bit[..., 0].sum(), group).clamp_min(1.0))
         l_x = per_bit_masked_code_loss(out["x_logits"], gt_x, roi_bit, bit_masks,
-                                       bit_weights, proj_loss_type)
+                                       bit_weights, proj_loss_type, group)
         l_y = per_bit_masked_code_loss(out["y_logits"], gt_y, roi_bit, bit_masks,
-                                       bit_weights, proj_loss_type)
+                                       bit_weights, proj_loss_type, group)
     else:
-        l_x = masked_code_loss(out["x_logits"], gt_x, roi_bit, proj_loss_type)
-        l_y = masked_code_loss(out["y_logits"], gt_y, roi_bit, proj_loss_type)
-    l_sv = mask_loss_interpolate(out["seg_logits"][..., 0], batch["mask_visib"])
-    l_sf = mask_loss_interpolate(out["seg_logits"][..., 1], batch["mask_full"])
+        l_x = masked_code_loss(out["x_logits"], gt_x, roi_bit, proj_loss_type, group)
+        l_y = masked_code_loss(out["y_logits"], gt_y, roi_bit, proj_loss_type, group)
+    l_sv = mask_loss_interpolate(out["seg_logits"][..., 0], batch["mask_visib"], group)
+    l_sf = mask_loss_interpolate(out["seg_logits"][..., 1], batch["mask_full"], group)
     total = l_roi + l_x + l_y + seg_visib_loss_weight * l_sv + seg_full_loss_weight * l_sf
     metrics.update(loss_roi=l_roi, loss_x=l_x, loss_y=l_y, loss_seg_visib=l_sv,
                    loss_seg_full=l_sf)
     if aux_heatmap_weight:
-        l_aux = _aux_heatmap_loss(out["resp_map"], roi_bit, x_id, y_id, res_log2)
+        l_aux = _aux_heatmap_loss(out["resp_map"], roi_bit, x_id, y_id, res_log2, group)
         total = total + aux_heatmap_weight * l_aux
         metrics["loss_aux"] = l_aux
     if aux_refine_weight:
-        l_ref = _aux_refine_loss(out, roi_bit, x_id, y_id, res_log2, stage)
+        l_ref = _aux_refine_loss(out, roi_bit, x_id, y_id, res_log2, stage, group)
         total = total + aux_refine_weight * l_ref
         metrics["loss_aux_refine"] = l_ref
     if coord_reg_weight:
         x_rel, y_rel = continuous_rel_coords(batch, 2 ** res_log2)
         l_coord = _coord_reg_loss(out["x_logits"], out["y_logits"], x_rel, y_rel, roi_bit,
-                                  active_bits, res_log2)
+                                  active_bits, res_log2, group)
         total = total + coord_reg_weight * l_coord
         metrics["loss_coord"] = l_coord
     metrics["loss"] = total
@@ -391,21 +431,22 @@ def make_train_step(net, knn_idx, stage: int, *, roi_loss_type="BCE", proj_loss_
         _check_training(state, net)
         imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
                                         use_motion_blur, train=True,
-                                        color_aug_prob=color_aug_prob)
+                                        color_aug_prob=color_aug_prob, mesh=state.mesh)
         sel = None
         if teacher_force_prob > 0:
             B, N = batch["proj_xy"].shape[:2]
-            sel = torch.rand(B, N, generator=generator,
-                             device=generator.device) < teacher_force_prob
+            world = 1 if state.mesh is None else state.mesh.world
+            sel = torch.rand(B * world, N, generator=generator,
+                             device=generator.device)[rows(B, state.mesh)] < teacher_force_prob
         total, metrics = train_loss(
             net, knn_idx, imgs, batch, stage, sel=sel, roi_loss_type=roi_loss_type,
             proj_loss_type=proj_loss_type, seg_visib_loss_weight=seg_visib_loss_weight,
             seg_full_loss_weight=seg_full_loss_weight, full_bits=full_bits,
             aux_heatmap_weight=aux_heatmap_weight, aux_refine_weight=aux_refine_weight,
             coord_reg_weight=coord_reg_weight, bit_weights=bit_weights,
-            prefix_correct_mask=prefix_correct_mask)
+            prefix_correct_mask=prefix_correct_mask, group=_batch_group(state))
         _update(state, total)
-        return _detached(metrics)
+        return _reported(metrics, state)
 
     return step
 
@@ -457,17 +498,19 @@ def nocs_labels(depth, mask_visib, bbox, cam_K, R, t, diameter: float):
     return (m / diameter + 0.5).clamp(0.0, 1.0), valid
 
 
-def nocs_loss(net, imgs, batch, depth, diameter: float, visib_loss_weight: float = 0.5):
+def nocs_loss(net, imgs, batch, depth, diameter: float, visib_loss_weight: float = 0.5,
+              group=None):
     """Forward of a NOCSNet on normalized NHWC `imgs` and its loss: the L1 of
     the 3 NOCS channels over the valid cells (normalized by 3 n) plus
     `visib_loss_weight` times the mean BCE of the visibility logit over the
-    whole grid. (total, metrics)."""
+    whole grid. (total, metrics). `group`: see losses/__init__.py."""
     gt, valid = nocs_labels(depth, batch["mask_visib"], batch["bbox"], batch["cam_K"],
                             batch["R"], batch["t"], diameter)
     out = net(imgs)
-    n = valid.sum().clamp_min(1.0)
+    n = global_sum(valid.sum(), group).clamp_min(1.0)
     l_nocs = ((out[..., :3] - gt).abs() * valid[..., None]).sum() / (3.0 * n)
-    l_vis = F.binary_cross_entropy_with_logits(out[..., 3], batch["mask_visib"])
+    l_vis = global_mean(F.binary_cross_entropy_with_logits(
+        out[..., 3], batch["mask_visib"], reduction="none"), group)
     total = l_nocs + visib_loss_weight * l_vis
     return total, {"loss": total, "loss_nocs": l_nocs, "loss_visib": l_vis}
 
@@ -497,10 +540,10 @@ def make_nocs_train_step(net, *, diameter: float, use_pepper_salt=True,
         _check_training(state, net)
         imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
                                         use_motion_blur, train=True,
-                                        color_aug_prob=color_aug_prob)
+                                        color_aug_prob=color_aug_prob, mesh=state.mesh)
         total, metrics = nocs_loss(net, imgs, batch, depth_of(batch), diameter,
-                                   visib_loss_weight)
+                                   visib_loss_weight, _batch_group(state))
         _update(state, total)
-        return _detached(metrics)
+        return _reported(metrics, state)
 
     return step

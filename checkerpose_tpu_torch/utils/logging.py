@@ -1,11 +1,15 @@
 """Metric logging: JSONL always, TensorBoard when available (the port's own
 copy of checkerpose_tpu/utils/logging.py::MetricWriter; same scalar names and
-file format)."""
+file format), and `profiler`, a trace scope."""
 from __future__ import annotations
 
 import json
 import os
 import time
+from contextlib import contextmanager
+from typing import Optional
+
+import torch
 
 
 class MetricWriter:
@@ -37,3 +41,21 @@ class MetricWriter:
         self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
+
+
+@contextmanager
+def profiler(trace_dir: Optional[str]):
+    """torch.profiler over the block, its Chrome trace written to
+    `<trace_dir>/trace.json` (the CPU, and the card where CUDA is
+    available); does nothing for None (counterpart of the JAX package's
+    jax.profiler scope)."""
+    if not trace_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

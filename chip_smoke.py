@@ -113,6 +113,25 @@ Phases (each raises on failure; the script then exits non-zero):
               checkpoint bit for bit; (f) the test CLI on a resnet34 PoseNet.
               Every bf16 forward launches the tensor-core kernel 11 times (2
               an InitNet eval batch), the f32 ones the FMA kernel, NOCS none.
+ 11. parallel data parallelism and the native loader: (a) the train CLI
+              (EVAL_CFG's width, batch 64, 20 iterations, eval at 10 and 20)
+              started as torchrun starts it, world size 1 over NCCL, in a
+              process of its own on phase workflow's fixture from its
+              pretrained init net: backend and world, losses finite, each
+              checkpoint written once, 11 tensor-core launches an eval batch
+              (counted in that process and sent back); ms an iteration beside
+              phase workflow's single-process train CLI, peak memory; (b) one
+              f32 train step of the flagship PoseNet (augmentation and
+              teacher forcing on, SGD) on 2 gloo ranks x 4 rows on the one
+              card against one process at batch 8, on a batch whose rows hold
+              different in-RoI counts: the loss, every parameter and running
+              statistic at tests/test_sharding.py's bars (phase train's
+              gate-2 bars where near-ties in EdgeConv's max over K flip, the
+              flips counted); (c) the test CLI over 512 PNG frames without a
+              frame cache on the python path and, where the host has g++,
+              png.h and jpeglib.h, on the native core (counters, crops within
+              one grey level, the CSVs' rows; else that half is left out with
+              the reason): eval images/s and loader wait ms a batch.
 Then one JSON line with the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -2988,6 +3007,460 @@ def timm_state_dict(name, rng):
     return sd
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: data parallelism and the native loader
+# ---------------------------------------------------------------------------
+
+# (b)'s bars: tests/test_sharding.py's, per leaf abs < 5e-4 or rel < 1e-3 after
+# an SGD step at DP_STEP_LR (tests/torch_dp_ranks.py::DP_LR: the rate at which
+# those bars tell the global normalizers from DDP's per-rank ones)
+DP_LEAF_ABS, DP_LEAF_REL, DP_STEP_LR = 5e-4, 1e-3, 1e-2
+DP_GROUP_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun_env(rank: int, world: int, port: int, local_rank: int):
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def _spawn(target, args_list, timeout: float):
+    """One spawned process per argument tuple, each running target(*args);
+    waits at most `timeout` seconds for them all, kills any left, and raises
+    unless every one exited 0."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args) for args in args_list]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [i for i, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if alive or any(c != 0 for c in codes):
+        raise RuntimeError(f"{target.__name__}: processes {alive} still running after "
+                           f"{timeout} s, exit codes {codes}")
+
+
+def _dp_cli_child(cfg, out_path, port, device_type, threads):
+    """(a)'s process: the train CLI's `main` under torchrun's environment at
+    world size 1, counted by `_run_cli`; what the gates read goes to
+    `out_path` as JSON."""
+    from checkerpose_tpu_torch.cli import train as cli_train
+    from checkerpose_tpu_torch.parallel.mesh import make_mesh
+    from checkerpose_tpu_torch.train import checkpoint
+    torch.set_num_threads(threads)
+    _torchrun_env(0, 1, port, 0)
+    mesh = make_mesh(device_type)
+    saves = []
+
+    def counted(orig):
+        def wrapped(root, state, max_to_keep):
+            saves.append(["best" if Path(root).name == "best" else "rolling", int(state.step)])
+            return orig(root, state, max_to_keep)
+        return wrapped
+
+    with _wrapped(checkpoint, "_save", counted):
+        run = _run_cli(mesh.device, cli_train.main, cfg, cli_train, "evaluate_pipeline",
+                       cli_train)
+    on_card = mesh.device.type == "cuda"
+    out = {"backend": mesh.backend, "world": mesh.world, "device": str(mesh.device),
+           "state_world": run["out"].mesh.world, "step": run["out"].step,
+           "losses": _logged_losses(run["lines"]), "saves": saves,
+           "evals": [{k: e[k] for k in ("batches", "launches", "seconds")} for e in run["evals"]],
+           "launches": run["launches"], "peak_mem_gib": run["peak_mem_gib"],
+           "ms_per_iter": _ms_per_iter(run, int(cfg["total_iteration"])) if on_card else None}
+    Path(out_path).write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def _gate_dp_cli(r, iters, test_freq, per_batch, backend):
+    """(a)'s gates on the child's record."""
+    eval_steps = sorted(set(range(test_freq, iters + 1, test_freq)) | {iters})
+    rolling = [s for kind, s in r["saves"] if kind == "rolling"]
+    best = [s for kind, s in r["saves"] if kind == "best"]
+    if (r["backend"], r["world"], r["state_world"], r["step"]) != (backend, 1, 1, iters):
+        raise AssertionError(f"gate (a): backend {r['backend']}, world {r['world']} "
+                             f"(state {r['state_world']}), step {r['step']}")
+    if not r["losses"] or not np.isfinite(r["losses"]).all():
+        raise AssertionError(f"gate (a): logged losses {r['losses']}")
+    if rolling != eval_steps or not best or len(set(best)) != len(best) \
+            or not set(best) <= set(eval_steps):
+        raise AssertionError(f"gate (a): checkpoint writes {r['saves']}, expected one rolling "
+                             f"save at each of {eval_steps} and one best save per new best")
+    total = {"tc": 0, "fma": 0}
+    for i, ev in enumerate(r["evals"]):
+        want = {"tc": per_batch * ev["batches"], "fma": 0}
+        if ev["launches"] != want:
+            raise AssertionError(f"gate (a): eval {i} launched {ev['launches']} for "
+                                 f"{ev['batches']} batches, expected {want}")
+        total = {k: total[k] + ev["launches"][k] for k in total}
+    if len(r["evals"]) != len(eval_steps) or r["launches"] != total:
+        raise AssertionError(f"gate (a): {len(r['evals'])} evals, launches {r['launches']} "
+                             f"against the evals' {total}")
+    return total
+
+
+def _uneven_mask_batch(rng, batch, p3d, p3dn):
+    """A synthetic training batch whose rows hold different numbers of
+    in-RoI keypoints (row b moves its last b/batch of them left of its
+    bbox), so that shards of it hold different counts."""
+    b = _train_batches(rng, 1, batch, p3d, p3dn)[0]
+    n = p3d.shape[0]
+    for row in range(batch):
+        k = n - row * n // batch
+        b["proj_xy"][row, k:, 0] = b["bbox"][row, 0] - rng.uniform(5, 40, n - k)
+    return b
+
+
+def _dp_step(device, cfg, knn, batch_np, lr, seed, mesh=None):
+    """One f32 train step (stage 3, augmentation and teacher forcing on,
+    SGD at `lr`) of a PoseNet drawn from `seed` on this process's rows of
+    `batch_np`: the metrics, the module's tensors after the step, and each
+    EdgeConv's argmax over K ((B, N, C') per conv, from its BatchNorm's
+    train-mode output; leaky ReLU keeps the order)."""
+    from checkerpose_tpu_torch.models.layers import init_params
+    from checkerpose_tpu_torch.models.posenet import PoseNet, knn_tensor
+    from checkerpose_tpu_torch.parallel.mesh import replicate_module, shard_batch
+    from checkerpose_tpu_torch.train import steps
+    from checkerpose_tpu_torch.train.state import TrainState
+    net = PoseNet(**cfg, dtype=torch.float32)
+    init_params(net, torch.Generator().manual_seed(seed))
+    net.to(device).train()
+    state = TrainState(module=net, optimizer=torch.optim.SGD(net.parameters(), lr=lr))
+    if mesh is not None:
+        replicate_module(net, mesh)
+        state.mesh = mesh
+        batch_np = shard_batch(batch_np, mesh)
+    argmax = []
+    hooks = [m.bn.register_forward_hook(lambda mod, i, o: argmax.append(o.argmax(2).cpu()))
+             for m in _edgeconvs(net)]
+    step = steps.make_train_step(net, knn_tensor(knn, cfg["npoint"], device), 3,
+                                 teacher_force_prob=0.5)
+    try:
+        metrics = step(state, _on(device, batch_np), torch.Generator(device).manual_seed(seed))
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "argmax": argmax,
+            "state": {k: v.detach().cpu() for k, v in net.state_dict().items()}}
+
+
+def _dp_step_child(rank, world, port, cfg, knn, batch_np, lr, seed, out_path, device_type,
+                   threads):
+    """(b)'s process: rank `rank` of a gloo group on one device (gloo
+    takes CUDA tensors; NCCL refuses two ranks on one card)."""
+    import datetime
+    import torch.distributed as dist
+    from checkerpose_tpu_torch.parallel.mesh import make_mesh
+    torch.set_num_threads(threads)
+    _torchrun_env(rank, world, port, 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    mesh = make_mesh(device_type)
+    res = _dp_step(mesh.device, cfg, knn, batch_np, lr, seed, mesh)
+    res["backend"] = mesh.backend
+    if rank != 0:
+        res.pop("state")
+    torch.save(res, f"{out_path}.rank{rank}")
+    dist.destroy_process_group()
+
+
+def _gate_dp_step(single, ranks, p0, lr):
+    """(b)'s gates: the loss, then every parameter and running statistic
+    against test_sharding.py's per-leaf bars; where near-ties in EdgeConv's
+    max over K put leaves beyond them (the flipped argmaxes are counted), the
+    gradients against phase train's gate-2 relative-L2 bars instead."""
+    rows = len(ranks[0]["argmax"][0])
+    flipped = [int(sum((r["argmax"][c] != single["argmax"][c][i * rows:(i + 1) * rows]).sum()
+                       for i, r in enumerate(ranks)))
+               for c in range(len(single["argmax"]))]
+    loss, want = ranks[0]["metrics"]["loss"], single["metrics"]["loss"]
+    loss_rel = abs(loss - want) / abs(want)
+    report = []
+    for name, a in single["state"].items():
+        a, b = a.double(), ranks[0]["state"][name].double()
+        ad = float((a - b).abs().max())
+        rd = float(((a - b).abs() / (a.abs() + 1e-6)).max())
+        if not (ad < DP_LEAF_ABS or rd < DP_LEAF_REL):
+            report.append((name, ad, rd))
+    res = {"loss": loss, "loss_single": want, "loss_rel_err": loss_rel,
+           "leaves_beyond_bar": len(report),
+           "worst_leaves": sorted(report, key=lambda x: -x[1])[:5],
+           "argmax_flipped_per_edgeconv": flipped,
+           "argmax_entries_per_edgeconv": int(single["argmax"][0].numel())}
+    if loss_rel > 1e-4:
+        raise AssertionError(f"gate (b): loss {loss} against one process's {want}")
+    if report:
+        names = [n for n in p0 if n in dict(single["state"]) and not n.endswith(
+            ("running_mean", "running_var"))]
+        grads = {k: {n: (p0[n] - s["state"][n]) / lr for n in names}
+                 for k, s in (("dp", ranks[0]), ("single", single))}
+        rel, (leaf_err, leaf) = _rel_l2(grads["dp"], grads["single"])
+        stat_err = max(float(((ranks[0]["state"][n] - v).abs() / (1.0 + v.abs())).max())
+                       for n, v in single["state"].items() if n.endswith(("mean", "var")))
+        res.update(gate="relative L2 (phase train's gate-2 bars)", grad_rel_l2=rel,
+                   worst_leaf=leaf, worst_leaf_max_rel=leaf_err, running_stat_max_rel_err=stat_err)
+        if rel > GRAD_GLOBAL_TOL or leaf_err > GRAD_LEAF_TOL or stat_err > STAT_TOL:
+            raise AssertionError(f"gate (b): the 2-rank step disagrees with one process's: {res}")
+    else:
+        res["gate"] = "per leaf (test_sharding.py's bars)"
+    return res
+
+
+def _native_toolchain_missing():
+    """What the native core's build needs and this host lacks (g++, png.h,
+    jpeglib.h): the probe of (c)."""
+    import shutil
+    if shutil.which("g++") is None:
+        return ["g++"]
+    missing = []
+    for header in ("png.h", "jpeglib.h"):
+        proc = subprocess.run(["g++", "-E", "-x", "c++", "-"], input=f"#include <{header}>\n",
+                              capture_output=True, text=True, timeout=60)
+        if proc.returncode != 0:
+            missing.append(header)
+    return missing
+
+
+def _csv_poses(path):
+    """{(scene_id, im_id): (R row-major, t) as 12 floats} of a BOP19 CSV."""
+    with open(path) as f:
+        rows = [ln.rstrip("\n").split(",") for ln in f.readlines()[1:]]
+    return {(int(r[0]), int(r[1])): np.array(r[4].split() + r[5].split(), np.float64)
+            for r in rows}
+
+
+def _loader_runs(device, cfg, n_images, batch, paths):
+    """(c): the test CLI on each of `paths` ("native": the default where the
+    core builds; "python": forced). Gates on every run: its launches and
+    images, the native counters (above 0 on the native run only). With both
+    runs, the first batches (images within one grey level, as
+    tests/test_native_loader.py holds the core to cv2: the core rounds its
+    bilinear taps in floating point, cv2 and the python path in 11-bit
+    fixed point; masks, boxes and valid exact) and the CSVs (the same rows,
+    finite poses)."""
+    from contextlib import nullcontext
+    from checkerpose_tpu_torch.cli import common, test as cli_test
+    from checkerpose_tpu_torch.data import native_loader
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+    on_card = device.type == "cuda"
+    forwards = -(-n_images // batch)
+    runs, firsts, poses = {}, {}, {}
+    for path in paths:
+        run_cfg = dict(cfg, eval_output_path=str(Path(cfg["eval_output_path"]) / path))
+        patch = (_wrapped(native_loader, "available", lambda orig: lambda: False)
+                 if path == "python" else nullcontext())
+        with patch:
+            native_loader.reset_counts()
+            reset_launch_counts()
+            spans = {}
+            _sync(device)
+            t0 = time.perf_counter()
+            report = cli_test.main(run_cfg, spans=spans)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            counts = dict(native_loader.counts)
+            # the first batch from the dataset itself: a loader's prefetch thread
+            # would go on loading after it and count into the next run
+            ds = common.build_test_loader(run_cfg, common.load_keypoints(run_cfg)[0])[0].ds
+            firsts[path] = (ds.get_batch(np.arange(batch)) if ds.supports_batch()
+                            else _stack_items([ds[i] for i in range(batch)]))
+        by_route = dict(edgeconv_fused.launches_by_route)
+        want = {"tc": EDGECONV_PER_FORWARD * forwards if on_card else 0, "fma": 0}
+        if by_route != want or report["n_images"] != n_images:
+            raise AssertionError(f"gate (c): {path} run: launches {by_route} (expected "
+                                 f"{want}), {report['n_images']} images")
+        if (path == "native") != (counts["batches"] > 0 and counts["items"] >= n_images) \
+                or (path == "python" and any(counts.values())):
+            raise AssertionError(f"gate (c): native counters {counts} on the {path} run")
+        split = _split_spans(spans, n_images)
+        runs[path] = {"native_counts": counts, "launches": by_route,
+                      "cli_wall_s": wall if on_card else None,
+                      "images_per_s": split["images_per_s"] if on_card else None,
+                      "images_per_s_after_first": (split["images_per_s_after_first"]
+                                                   if on_card else None),
+                      "loader_wait_ms_per_batch": (split["ms_per_batch"]["loader"]
+                                                   if on_card else None),
+                      "loader_wait_ms_after_first": (
+                          split["ms_per_batch_after_first"]["loader"] if on_card else None)}
+        poses[path] = _csv_poses(Path(run_cfg["eval_output_path"])
+                                 / f"{Path(EVAL_CFG).stem}_obj01.csv")
+        if len(poses[path]) != n_images or not all(np.isfinite(v).all()
+                                                   for v in poses[path].values()):
+            raise AssertionError(f"gate (c): the {path} run's CSV holds {len(poses[path])} "
+                                 f"rows for {n_images} images, or a non-finite pose")
+    out = {"runs": runs}
+    if len(paths) == 2:
+        img = np.abs(firsts["native"]["image"].astype(np.int32)
+                     - firsts["python"]["image"].astype(np.int32))
+        exact = {k: bool(np.array_equal(firsts["native"][k], firsts["python"][k]))
+                 for k in ("mask_visib", "mask_full", "bbox", "valid")}
+        if img.max() > 1 or not all(exact.values()):
+            raise AssertionError(f"gate (c): first batches: image max |diff| {img.max()}, "
+                                 f"exact {exact}")
+        a, b = poses["native"], poses["python"]
+        if sorted(a) != sorted(b):
+            raise AssertionError("gate (c): the two CSVs hold other rows")
+        err = np.array([np.abs(a[k] - b[k]).max() for k in a])
+        out.update(first_batch_image_max_abs_diff=int(img.max()),
+                   first_batch_image_share_equal=float((img == 0).mean()),
+                   first_batch_exact=exact, csv_pose_max_abs_diff=float(err.max()),
+                   csv_rows_within_1e5=float((err <= 1e-5).mean()))
+    return out
+
+
+def phase_parallel(device, data_root=None, init_root=None, root=None, batch=64, iters=20,
+                   test_freq=10, log_freq=5, cfg_overrides=None, step_cfg=None, step_batch=8,
+                   native_test=512, native_scenes=2, native_vertices=2048,
+                   single_train=None, timeout=900, seed=0):
+    """Data parallelism and the native loader: (a) the train CLI under
+    torchrun's environment at world size 1 (NCCL on the card, gloo on the
+    CPU) on phase workflow's fixture (`data_root`) from its pretrained init
+    net (`init_root`); (b) one f32 train step on 2 gloo ranks on the one
+    device against one process on the same batch; (c) the test CLI over PNG
+    frames without a frame cache on the python path and, where the host has
+    the core's headers, on the native core. Gates raise.
+    `single_train`: phase workflow's train CLI result, for (a)'s comparison."""
+    import shutil
+    from checkerpose_tpu_torch.cli import common
+    from checkerpose_tpu_torch.data.synthetic import make_synthetic_bop
+    from checkerpose_tpu_torch.models.layers import init_params
+    from checkerpose_tpu_torch.models.posenet import PoseNet
+    from checkerpose_tpu_torch.ops.knn import knn_index
+
+    on_card = device.type == "cuda"
+    root = Path(root) if root is not None else ROOT / "build" / "parallel_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    if data_root is None:
+        data_root = root / "data"
+        make_synthetic_bop(str(data_root), n_objects=1, n_scenes=1,
+                           folders={"test": 4, "train_real": batch}, n_vertices=native_vertices,
+                           raw_cache=True, write_png=False, seed=seed)
+    data = str(data_root)
+    res = {}
+    if on_card:
+        torch.cuda.empty_cache()              # the processes below share the card
+
+    # --- (a) the train CLI under torchrun's environment -------------------------------
+    overrides = dict(cfg_overrides or {}, bop_path=data, tensorboard_path=str(root / "tb"),
+                     log_freq=log_freq, device=device.type,
+                     check_point_path=str(root / "ckpt_dp"), total_iteration=iters,
+                     test_freq=test_freq,
+                     Detection_reaults=f"{data}/detection_results/synth/synth_detections.json")
+    if init_root is not None:
+        overrides["init_pretrained_root"] = str(init_root)
+    tcfg = common.resolve_cfg(str(ROOT / EVAL_CFG), "obj01", overrides)
+    out_a = root / "dp_cli.json"
+    t0 = time.perf_counter()
+    # the child takes the intra-op threads this process would use: ranks that
+    # share a host's cores with more threads than cores spin on each other
+    threads = torch.get_num_threads()
+    _spawn(_dp_cli_child, [(tcfg, str(out_a), _free_port(), device.type, threads)], timeout)
+    child_s = time.perf_counter() - t0
+    r = json.loads(out_a.read_text())
+    launches = _gate_dp_cli(r, iters, test_freq, EDGECONV_PER_FORWARD if on_card else 0,
+                            "nccl" if on_card else "gloo")
+    so = (single_train or {}).get("ms_per_iter") or {}
+    res["dp_train"] = {"backend": r["backend"], "world": r["world"], "iterations": iters,
+                       "logged_losses": r["losses"], "saves": r["saves"],
+                       "eval_batches": [e["batches"] for e in r["evals"]],
+                       "eval_s": [e["seconds"] for e in r["evals"]] if on_card else None,
+                       "ms_per_iter": r["ms_per_iter"], "peak_mem_gib": r["peak_mem_gib"],
+                       "single_process_ms_per_iter": so or None, "launches": launches,
+                       "process_s": child_s if on_card else None}
+    say(f"[parallel] (a) torchrun's environment, world {r['world']}, backend {r['backend']} "
+        f"on {r['device']}: cli.train.main {iters} iterations at batch {tcfg['batch_size']}, "
+        f"eval every {test_freq}: host ms an iteration without the evals {r['ms_per_iter']} "
+        f"against the single-process train CLI's {so or None} (phase workflow, this run); "
+        f"evals {res['dp_train']['eval_s']} s; EdgeConv launches {launches} = "
+        f"{EDGECONV_PER_FORWARD} x {sum(res['dp_train']['eval_batches'])} eval batches; "
+        f"losses finite ({r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}); checkpoint writes "
+        f"{r['saves']}, each once; peak {r['peak_mem_gib']} GiB; the process took "
+        f"{res['dp_train']['process_s']} s start to end")
+
+    # --- (b) two gloo ranks on one device against one process ------------------------
+    cfg = dict(step_cfg or dict(npoint=512, backbone_name="hrnet_w18", **POSENET_CFG))
+    rng = np.random.default_rng(seed + 11)
+    p3d = rng.uniform(-40, 40, (cfg["npoint"], 3))
+    p3dn = (p3d - p3d.mean(0)) / np.linalg.norm(p3d - p3d.mean(0), axis=1).max()
+    knn = knn_index(p3dn, cfg.pop("knn_k", 20))
+    batch_np = _uneven_mask_batch(rng, step_batch, p3d, p3dn.astype(np.float32))
+    single = _dp_step(device, cfg, knn, batch_np, DP_STEP_LR, seed)
+    p0 = PoseNet(**cfg, dtype=torch.float32)
+    init_params(p0, torch.Generator().manual_seed(seed))
+    p0 = {k: v.detach() for k, v in p0.state_dict().items()}
+    if on_card:
+        torch.cuda.empty_cache()
+    out_b = root / "dp_step.pt"
+    port = _free_port()
+    _spawn(_dp_step_child, [(rank, 2, port, cfg, knn, batch_np, DP_STEP_LR, seed, str(out_b),
+                             device.type, max(1, threads // 2)) for rank in range(2)], timeout)
+    ranks = [torch.load(f"{out_b}.rank{r}", weights_only=True) for r in range(2)]
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"gate (b): backends {[r['backend'] for r in ranks]}")
+    res["dp_step"] = _gate_dp_step(single, ranks, p0, DP_STEP_LR)
+    in_roi = [int(((batch_np["proj_xy"][b, :, 0] >= batch_np["bbox"][b, 0])).sum())
+              for b in range(step_batch)]
+    say(f"[parallel] (b) one f32 train step (stage 3, augmentation and teacher forcing on, "
+        f"SGD {DP_STEP_LR:g}) of a PoseNet at npoint {cfg['npoint']}, {cfg['backbone_name']}, "
+        f"K {knn.shape[1]}: 2 gloo ranks x {step_batch // 2} rows on {device.type} against one "
+        f"process at batch {step_batch} (in-RoI keypoints by row {in_roi}): {res['dp_step']}")
+
+    # --- (c) the loaders over PNG frames, native and python ---------------------------
+    missing = _native_toolchain_missing()
+    paths = ("python",) if missing else ("native", "python")
+    ndata = str(root / "native_data")
+    t0 = time.perf_counter()
+    make_synthetic_bop(ndata, n_objects=1, n_scenes=native_scenes,
+                       folders={"test": native_test // native_scenes},
+                       n_vertices=native_vertices, raw_cache=False, write_png=True, seed=seed)
+    fixture_s = time.perf_counter() - t0
+    if (Path(ndata) / "synth" / "frame_cache").exists():
+        raise AssertionError("gate (c): the fixture has a frame cache (no PNG codec here?)")
+    qcfg = dict(common.resolve_cfg(str(ROOT / EVAL_CFG), "obj01", dict(
+        cfg_overrides or {}, bop_path=ndata, device=device.type,
+        Detection_reaults=f"{ndata}/detection_results/synth/synth_detections.json")),
+        ckpt_dir=tcfg["check_point_path"], eval_output_path=str(root / "out"),
+        test_batch_size=batch, decode_mode="hard")
+    loaders = _loader_runs(device, qcfg, native_test, batch, paths)
+    loaders.update(fixture_s=fixture_s if on_card else None,
+                   native_left_out=(f"this host lacks {missing}: the native core "
+                                    "(native/loadercore.cpp) cannot build here"
+                                    if missing else None))
+    res["native_loader"] = loaders
+    if missing:
+        say(f"[parallel] (c) native half left out: {loaders['native_left_out']}")
+    for path, run in loaders["runs"].items():
+        say(f"[parallel] (c) test CLI, {path} loader, {native_test} PNG frames (no frame cache) "
+            f"at batch {batch}: {run['images_per_s']} eval images/s over the sweep, "
+            f"{run['images_per_s_after_first']} after the first batch; loader wait "
+            f"{run['loader_wait_ms_per_batch']} ms a batch ({run['loader_wait_ms_after_first']} "
+            f"after the first); native counters {run['native_counts']}; EdgeConv launches "
+            f"{run['launches']}; fixture {loaders['fixture_s']} s")
+    if not missing:
+        say(f"[parallel] (c) first batches native vs python: image max |diff| "
+            f"{loaders['first_batch_image_max_abs_diff']} grey level (bar 1), "
+            f"{loaders['first_batch_image_share_equal']:.4f} of values equal; masks, boxes, "
+            f"valid equal {loaders['first_batch_exact']}; CSV pose max |diff| "
+            f"{loaders['csv_pose_max_abs_diff']}, {loaders['csv_rows_within_1e5']:.4f} of the "
+            f"rows within 1e-5")
+    return res
+
 KERNELS = {
     "tc": dict(name="edgeconv_fused_tc", source="checkerpose_tpu_torch/csrc/edgeconv_tc.cu",
                dtype="bfloat16", phase="serving",
@@ -2998,7 +3471,9 @@ KERNELS = {
                     "graph takes the plain per-sample path, as in the JAX package); phase "
                     "backbones: serving on resnet34 (the slice's main path) and the other "
                     "backbones, the timm grafts, the pretrain CLI after the NOCS graft and "
-                    "the test CLI on resnet34; 0 in NOCS pretraining"),
+                    "the test CLI on resnet34; 0 in NOCS pretraining; phase parallel: 11 an "
+                    "eval batch of the data-parallel train CLI (and of the native-loader "
+                    "test CLI where that runs); 0 in the 2-rank f32 step"),
     "fma": dict(name="edgeconv_fused_fma", source="checkerpose_tpu_torch/csrc/edgeconv.cu",
                 dtype="float32", phase="reference",
                 path="f32 forward (phase reference, and phase backbones (c) on every "
@@ -3061,6 +3536,15 @@ def kernel_summary(rows, launches_by_route, train_eval_launches=None, eval_launc
     return entries
 
 
+def parallel_launches(parallel):
+    """Phase parallel's paths for the kernels line: the DP train CLI's evals
+    and, where (c) ran, the native and python test CLI runs."""
+    out = {"parallel_dp_train": parallel["dp_train"]["launches"]}
+    for path, run in parallel["native_loader"]["runs"].items():
+        out[f"parallel_{path}_loader_test"] = run["launches"]
+    return out
+
+
 def _check_checkout():
     import checkerpose_tpu_torch
     pkg = Path(checkerpose_tpu_torch.__file__).resolve().parent
@@ -3103,6 +3587,10 @@ def main(argv=None) -> int:
     backbones = phase_backbones(device, seed=args.seed,
                                 data_root=ROOT / "build" / "workflow_smoke" / "data",
                                 hrnet_w18_crops_per_s=serving["crops_per_s"])
+    parallel = phase_parallel(
+        device, seed=args.seed, data_root=ROOT / "build" / "workflow_smoke" / "data",
+        init_root=ROOT / "build" / "workflow_smoke" / "ckpt_pre" / Path(PRETRAIN_CFG).stem,
+        single_train=workflow["train"])
 
     launches = {"tc": serving["edgeconv_launches_by_route"]["tc"],
                 "fma": reference["f32"]["edgeconv_launches_by_route"]["fma"]}
@@ -3113,13 +3601,15 @@ def main(argv=None) -> int:
     print(json.dumps({"workflow": workflow, "card": card}))
     print(json.dumps({"lm": lm, "card": card}))
     print(json.dumps({"backbones": backbones, "card": card}))
+    print(json.dumps({"parallel": parallel, "card": card}))
     script_s = time.perf_counter() - t_start
     say(f"[script] {script_s:.1f} s from the start to the end of the last phase")
     lm_paths = lm["launches_by_path"]
     print(json.dumps({"kernels": kernel_summary(
         rows, launches, train["eval_after_training"]["edgeconv_launches_by_route"],
         evaluation["hard"]["edgeconv_launches_by_route"], eval_rows,
-        {**workflow["launches_by_path"], **lm_paths, **backbones["launches_by_path"]}),
+        {**workflow["launches_by_path"], **lm_paths, **backbones["launches_by_path"],
+         **parallel_launches(parallel)}),
         "lm_path_launches": {k: sum(p[k] for p in lm_paths.values())
                              for k in ("tc", "fma", "per_sample")},
         "script_s": script_s}))

@@ -184,10 +184,9 @@ def _datasets(root, use_det, is_train, cache):
             samples = det.attach_detections(samples, det.load_detections(det_path, 1))
             samples[1].detect_bbox = None                # a missed detection: a dummy item
         fc = frames.FrameCache(os.path.join(root, "synth", "frame_cache")) if cache else None
+        # both on the python path (the native core's parity has its own tests)
         kw = dict(is_train=is_train, crop_size_gt=64, use_detections=use_det, seed=5,
-                  frame_cache=fc)
-        if dataset is jdataset:
-            kw["use_native"] = False
+                  frame_cache=fc, use_native=False)
         out.append(dataset.CropDataset(samples, xyz, **kw))
     return out
 

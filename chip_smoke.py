@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths on one NVIDIA GPU: serving to backbone pretraining.
+"""Drive the PyTorch port's paths on one NVIDIA GPU: serving to trained-weight parity.
 
     python3 chip_smoke.py                 # every phase, as a user would run it
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler table
@@ -132,6 +132,25 @@ Phases (each raises on failure; the script then exits non-zero):
               png.h and jpeglib.h, on the native core (counters, crops within
               one grey level, the CSVs' rows; else that half is left out with
               the reason): eval images/s and loader wait ms a batch.
+ 12. trained  trained weights through the kernels: (a) the overfit recipe of
+              tools/diag_overfit.py through the port's tool
+              (checkerpose_tpu_torch/tools/diag_overfit.py: hrnet_w18 InitNet,
+              512 keypoints, K=20, bf16, Adam 2e-4, aux heatmap loss 1.0, 64
+              fixed crops of gen_synth_scale.py's dataset, 400 steps), its
+              curve printed beside the JAX run's (logs/diag_overfit_hrnet_aux.log)
+              and gated at step 400 on what that run had learned; (b) the
+              trained InitNet on the 64 crops in bf16 (route "tc" and the plain
+              EdgeConv) and as an f32 copy (route "fma" and the plain EdgeConv):
+              bits by route, evaluate_init's bit errors; (c) that InitNet
+              grafted into a flagship PoseNet (create_pose_state's handoff),
+              make_train_step (stage 3) for 120 s at batch 32 on the same
+              crops; the bits of every head, "tc" against the plain EdgeConv in
+              bf16 (the kernel) and bf16 against the f32 copy (held to what
+              bf16 does without the kernel), where bf16 leaves f32 layer by
+              layer; ServingPipeline and evaluate_pipeline in bf16 (11 "tc"
+              launches a forward) and on the f32 copy (11 "fma"): n_valid,
+              adx10 within the f32 path's spread over 3 solver seeds. The
+              accuracy guard for a later change to route "tc".
 Then one JSON line with the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -3461,6 +3480,563 @@ def phase_parallel(device, data_root=None, init_root=None, root=None, batch=64, 
             f"rows within 1e-5")
     return res
 
+# logs/diag_overfit_hrnet_aux.log, the JAX package's run of tools/diag_overfit.py
+# (hrnet_w18, 64 crops, --aux 1.0): step -> (loss, RoI bit error, x bits, y bits)
+JAX_OVERFIT_CURVE = {
+    1: (7.0307, 0.942, (0.480, 0.500, 0.503), (0.506, 0.494, 0.505)),
+    200: (1.4482, 0.001, (0.218, 0.361, 0.432), (0.336, 0.453, 0.389)),
+    400: (1.1729, 0.000, (0.140, 0.287, 0.349), (0.204, 0.341, 0.332)),
+    600: (1.0373, 0.000, (0.114, 0.247, 0.297), (0.153, 0.272, 0.293)),
+}
+# the script must end within 1200 s, its build included, on a slow host too: phase
+# trained shortens (c)'s training (to TRAIN_MIN_S at least) so as to end by
+# SCRIPT_BUDGET_S; POSE_TAIL_S is what (c) takes after its training
+SCRIPT_BUDGET_S, TRAIN_MIN_S, POSE_TAIL_S = 1100.0, 30.0, 30.0
+# gate (a), at OVERFIT_GATE_STEP: what the JAX run had clearly learned by then
+OVERFIT_GATE_STEP = 400
+OVERFIT_ROI_MAX, OVERFIT_MSB_MAX, OVERFIT_LOSS_RATIO = 0.01, 0.30, 0.3
+# Bits of the trained nets, two ways. The kernel: bf16 through route "tc"
+# against bf16 through the plain EdgeConv (the same net and arithmetic but
+# the kernel): at most BIT_SHARE of a head's bits differ, and for a head no
+# gather conditions (RoI, init bits, seg) each where the logit lies within
+# TERMS_BAR of its output layer's terms sum |w x| + |b| (f32 inputs): a few
+# roundings of 2^-8 carried through the layers after the kernel. bf16 against
+# f32 ("tc" against "fma"): at most BIT_SHARE of a head's bits differ, or for
+# a head where bf16 without the kernel (the plain EdgeConv) already flips
+# more, PRECISION_SHARE_FACTOR times that share; each where the f32 logit
+# lies within the largest |bf16 - f32| the plain bf16 forward shows on that
+# head, bf16's own rounding of 0 there. The trained InitNet alone (b) holds
+# the first bars against f32 too.
+BIT_SHARE, TERMS_BAR, PRECISION_SHARE_FACTOR = 0.01, 2.0 ** -4, 1.5
+
+
+def _overfit_table(curve):
+    """The port's curve beside the JAX run's at the steps both logged."""
+    lines = []
+    for c in curve:
+        L = (len(c["bit_err"]) - 1) // 2
+        be = c["bit_err"]
+        port = (f"loss {c['loss']:.4f} roi {be[0]:.3f} x {' '.join(f'{v:.3f}' for v in be[1:1 + L])}"
+                f" y {' '.join(f'{v:.3f}' for v in be[1 + L:])}")
+        j = JAX_OVERFIT_CURVE.get(c["step"])
+        jax = ("(JAX did not log this step)" if j is None else
+               f"JAX loss {j[0]:.4f} roi {j[1]:.3f} x {' '.join(f'{v:.3f}' for v in j[2])} "
+               f"y {' '.join(f'{v:.3f}' for v in j[3])}")
+        lines.append(f"step {c['step']}: port {port} | {jax}")
+    return lines
+
+
+def _gate_overfit(curve, gate_step):
+    """Gate (a) on the port's curve: at `gate_step` the RoI bit error and
+    the x / y MSB errors under their bars, and the last loss under a share
+    of the first."""
+    at = next(c for c in curve if c["step"] == gate_step)
+    L = (len(at["bit_err"]) - 1) // 2
+    res = {"gate_step": gate_step, "roi": float(at["bit_err"][0]),
+           "x_msb": float(at["bit_err"][1]), "y_msb": float(at["bit_err"][1 + L]),
+           "loss_ratio": curve[-1]["loss"] / curve[0]["loss"]}
+    res["passed"] = (res["roi"] <= OVERFIT_ROI_MAX and res["x_msb"] <= OVERFIT_MSB_MAX
+                     and res["y_msb"] <= OVERFIT_MSB_MAX
+                     and res["loss_ratio"] <= OVERFIT_LOSS_RATIO)
+    return res
+
+
+class _OutputTerms:
+    """Inside the block, forward hooks on a net's output layers (an
+    InitNet's mlp; a PoseNet's init_net.mlp, each refine stage's query_out
+    and seg_block) keep each output's terms magnitude sum |w x| + |b|, in
+    the output's layout: "init" (B, N, 1 + 2*3), "refine" (B, N, 2, stages),
+    "seg" (B, h, w, 2)."""
+
+    def __init__(self, net):
+        init = getattr(net, "init_net", net)
+        self.layers = [("init", init.mlp)]
+        self.layers += [("refine", getattr(net, f"refine_{i}").query_out)
+                        for i in range(getattr(net, "num_refine_steps", 0))]
+        if hasattr(net, "seg_block"):
+            self.layers.append(("seg", net.seg_block))
+        self.terms = {}
+
+    def _keep(self, name, mod, inputs):
+        x = inputs[0].float().abs()
+        w, b = mod.weight.float().abs(), mod.bias.float().abs()
+        if name == "seg":
+            t = torch.nn.functional.conv2d(x, w, b).permute(0, 2, 3, 1)
+        else:
+            t = x @ w.t() + b
+        if name == "refine":
+            self.terms["refine"] = torch.cat([self.terms.get("refine", t[..., None][..., :0]),
+                                              t[..., None]], dim=-1)
+        else:
+            self.terms[name] = t
+
+    def __enter__(self):
+        self.terms = {}
+        self._hooks = [m.register_forward_hook(
+            lambda mod, inputs, out, name=name: self._keep(name, mod, inputs))
+            for name, m in self.layers]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+
+
+def _bit_agreement(got, want, terms=None, cond=None):
+    """Bits of one head, `got` (bf16, or the kernel) against `want` (f32, or
+    the plain version): how many differ and, with `terms` (the f32 logits'
+    terms magnitudes), how many of those lie beyond TERMS_BAR of them.
+    `cond`: where the bit's inputs agree (a refine bit whose earlier bits
+    and RoI bit agree at its keypoint); the gate's counts are taken there."""
+    got, want = got.float().cpu(), want.float().cpu()
+    flips = (got > 0) != (want > 0)
+    res = {"bits": flips.numel(), "differ": int(flips.sum()),
+           "share": float(flips.float().mean()),
+           "largest_abs_logit": float(want.abs().max()),
+           "max_abs_logit_diff": float((got - want).abs().max())}
+    held = flips if cond is None else flips & cond.cpu()
+    if cond is not None:
+        res.update(held_bits=int(cond.sum()), held_differ=int(held.sum()),
+                   held_share=float(held.sum()) / max(int(cond.sum()), 1))
+    if terms is not None:
+        ratio = want.abs() / terms.float().cpu().clamp_min(1e-30)
+        res["beyond_bar"] = int((held & (ratio > TERMS_BAR)).sum())
+        res["worst_logit_over_terms_at_a_flip"] = (float(ratio[held].max())
+                                                   if bool(held.any()) else 0.0)
+    return res
+
+
+def _check_bits(what, agree, exact=False):
+    share = agree.get("held_share", agree["share"])
+    ok = agree["differ"] == 0 if exact else (
+        share <= BIT_SHARE and agree.get("beyond_bar", 0) == 0)
+    if not ok:
+        raise AssertionError(f"{what}: bits disagree beyond the bar: {agree}")
+
+
+def _pose_heads(out):
+    """A PoseNet's outputs by head: roi (B, N, 1), the init net's x / y bits
+    (B, N, 3), the refine stages' x / y bits (B, N, stages), seg (B, h, w, 2)."""
+    heads = {"roi": out["roi_logit"], "seg": out["seg_logits"]}
+    for a in "xy":
+        heads[f"{a}_init"] = out[f"{a}_logits"][..., :3]
+        heads[f"{a}_refine"] = out[f"{a}_logits"][..., 3:]
+    return heads
+
+
+def _refine_inputs_agree(oa, ob):
+    """(B, N, stages): where a refine bit's conditioning agrees in two
+    forwards, i.e. the RoI bit and every x and y bit before it."""
+    same = [(oa[f"{a}_logits"] > 0) == (ob[f"{a}_logits"] > 0) for a in "xy"]
+    prefix = (same[0] & same[1]).to(torch.int32).cumprod(-1).bool()
+    return prefix[..., 2:-1] & ((oa["roi_logit"] > 0) == (ob["roi_logit"] > 0))
+
+
+def _compare_heads(oa, ob, terms):
+    """_bit_agreement of every head of two PoseNet forwards; `terms` by
+    head (the f32 forward's output-layer terms)."""
+    ha, hb = _pose_heads(oa), _pose_heads(ob)
+    cond = _refine_inputs_agree(oa, ob)
+    return {k: _bit_agreement(ha[k], hb[k], terms.get(k) if not k.endswith("refine")
+                              else None, cond if k.endswith("refine") else None)
+            for k in ha}
+
+
+def _bf16_drift(pose, pose32, make_bf16, img, knn_t, cpu_crops=8):
+    """Where bf16 leaves f32 in a trained PoseNet: the relative L2 of the
+    bf16 forward against the f32 copy's at each backbone stage, up block,
+    refine stage and head output; and the same bf16 net on the CPU (the
+    plain EdgeConv, the CPU's convolutions) against the f32 copy on the
+    first `cpu_crops` crops, the share of each head's bits that differ."""
+    def outputs(module, x, knn):
+        names = [f"init_net.backbone.{n}" for n, _ in module.init_net.backbone.named_children()]
+        names += ["init_net.mlp"] + [f"{p}_{i}" for i in range(module.num_refine_steps)
+                                     for p in ("up", "refine")] + ["seg_block"]
+        mods, seen = dict(module.named_modules()), {}
+
+        def keep(name, out):
+            out = out[0] if isinstance(out, tuple) else out
+            if torch.is_tensor(out):
+                seen[name] = out.float()
+
+        hooks = [mods[n].register_forward_hook(lambda m, i, o, n=n: keep(n, o)) for n in names]
+        try:
+            with torch.no_grad():
+                heads = module(x, knn, stage=3)
+        finally:
+            for h in hooks:
+                h.remove()
+        return heads, seen
+
+    _, s16 = outputs(pose, img, knn_t)
+    o32, s32 = outputs(pose32, img, knn_t)
+    layers = {n: float((s16[n] - s32[n]).norm() / s32[n].norm().clamp_min(1e-30))
+              for n in s32 if n in s16 and s16[n].shape == s32[n].shape}
+    cpu = make_bf16()
+    cpu.load_state_dict(pose.state_dict(), strict=True)
+    with torch.no_grad():
+        oc = cpu.eval()(img[:cpu_crops].cpu(), knn_t.cpu(), stage=3)
+    h_cpu, h_32 = _pose_heads(oc), _pose_heads({k: v[:cpu_crops].cpu() for k, v in o32.items()})
+    cpu_share = {k: float(((h_cpu[k].float() > 0) != (h_32[k] > 0)).float().mean())
+                 for k in h_cpu}
+    return {"layer_rel_l2": layers, "cpu_bf16_vs_f32_share": cpu_share,
+            "cpu_crops": cpu_crops}
+
+
+def _precision_gate(tc, plain, f32):
+    """bf16 through route "tc" against f32, held to what bf16 does without
+    the kernel (the plain EdgeConv in bf16): by head, the share of
+    differing bits and the largest |f32 logit| at a differing bit against
+    BIT_SHARE (or PRECISION_SHARE_FACTOR x the plain forward's share) and
+    the plain forward's largest |bf16 - f32|."""
+    h_tc, h_pl, h_32 = _pose_heads(tc), _pose_heads(plain), _pose_heads(f32)
+    res = {}
+    for k in h_tc:
+        a, p, w = h_tc[k].float(), h_pl[k].float(), h_32[k].float()
+        flips, plain_flips = (a > 0) != (w > 0), (p > 0) != (w > 0)
+        res[k] = {"share": float(flips.float().mean()),
+                  "plain_share": float(plain_flips.float().mean()),
+                  "worst_abs_logit_at_a_flip": (float(w[flips].abs().max())
+                                                if bool(flips.any()) else 0.0),
+                  "plain_max_abs_diff": float((p - w).abs().max())}
+        r = res[k]
+        r["share_bar"] = max(BIT_SHARE, PRECISION_SHARE_FACTOR * r["plain_share"])
+        r["ok"] = (r["share"] <= r["share_bar"]
+                   and r["worst_abs_logit_at_a_flip"] <= r["plain_max_abs_diff"])
+    return res
+
+
+class _PlainEdgeConv:
+    """Inside the block every eval-mode EdgeConv on a static graph runs the
+    plain PyTorch version (`edgeconv_fused_plain`), on any device: the
+    reference the kernels are held against, never a path of the port."""
+
+    def __enter__(self):
+        from checkerpose_tpu_torch.models import graph
+        from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused_plain
+        self._graph, self._kept = graph, graph.edgeconv_fused
+        graph.edgeconv_fused = (lambda x, knn, w1, w2m1, scale, bias, slope, packed=None:
+                                edgeconv_fused_plain(x, knn, w1, w2m1, scale, bias, slope))
+        return self
+
+    def __exit__(self, *exc):
+        self._graph.edgeconv_fused = self._kept
+
+
+def _counted(fn):
+    """(fn(), EdgeConv launches by route and per-sample calls during it)."""
+    from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+    reset_launch_counts()
+    out = fn()
+    return out, dict(edgeconv_fused.launches_by_route)
+
+
+def _f32_copy(net, make):
+    """An f32 module built by make() holding `net`'s parameters and
+    statistics (which are f32 in both), in eval mode on net's device."""
+    copy = make()
+    copy.load_state_dict(net.state_dict(), strict=True)
+    return copy.to(next(net.parameters()).device).eval()
+
+
+def _gate_trained_launches(launches, on_card, n_logs, n_eval_batches):
+    """Every run of phase trained went through the route its dtype takes,
+    as often as its forwards: an InitNet forward 2 launches, a PoseNet's 11;
+    nothing off the card, and nothing with the plain EdgeConv."""
+    def want(tc=0, fma=0):
+        return {"tc": tc if on_card else 0, "fma": fma if on_card else 0}
+
+    expected = {"trained_recipe": want(tc=INIT_EDGECONVS * n_logs),
+                "trained_init_bf16": want(tc=INIT_EDGECONVS),
+                "trained_init_f32": want(fma=INIT_EDGECONVS), "trained_init_plain": want(),
+                "trained_init_eval_bf16": want(tc=INIT_EDGECONVS),
+                "trained_init_eval_f32": want(fma=INIT_EDGECONVS),
+                "trained_init_plain_bf16": want(),
+                "trained_pose_bf16": want(tc=EDGECONV_PER_FORWARD),
+                "trained_pose_plain_bf16": want(),
+                "trained_pose_f32": want(fma=EDGECONV_PER_FORWARD),
+                "trained_serving_bf16": want(tc=EDGECONV_PER_FORWARD),
+                "trained_serving_f32": want(fma=EDGECONV_PER_FORWARD)}
+    for name in launches:
+        if name.startswith("trained_eval_"):
+            per = EDGECONV_PER_FORWARD * n_eval_batches
+            expected[name] = want(tc=per) if "bf16" in name else want(fma=per)
+    if launches != expected:
+        raise AssertionError(f"phase trained: EdgeConv launches {launches}, expected {expected}")
+
+
+def _gate_pose_bf16(kernel_agree, precision, serving, evals, n):
+    """Gate (c) on the grafted PoseNet: the kernel's bits and bf16's bits by
+    head (the bars above BIT_SHARE), ServingPipeline's n_valid within 1% of
+    the f32 copy's, and under every filter evaluate_pipeline's n_valid
+    within 1% and adx10 over the same 3 solver seeds: the bf16 path's range
+    meets the f32 path's widened by one crop (a single run moves by a crop
+    or two between seeds, and the two nets' refine bits differ)."""
+    from checkerpose_tpu_torch.eval import harness
+
+    for k, a in kernel_agree.items():
+        _check_bits(f"gate (c): tc against the plain version in bf16, {k}", a)
+    for k, a in precision.items():
+        if not a["ok"]:
+            raise AssertionError(f"gate (c): bf16 against f32, {k}: {a}")
+    nv16, nv32 = serving["bf16"]["n_valid"], serving["f32"]["n_valid"]
+    if abs(nv16 - nv32) > 0.01 * max(nv32, 1):
+        raise AssertionError(f"gate (c): ServingPipeline n_valid {nv16} against {nv32}")
+    one = 1.0 / n
+    for mode in harness.FILTER_MODES:
+        a16 = evals["bf16"][0][mode]
+        f32s = [r[mode] for r in evals["f32"]]
+        if abs(a16["n_valid_mean"] - f32s[0]["n_valid_mean"]) > 0.01 * max(
+                f32s[0]["n_valid_mean"], 1e-9):
+            raise AssertionError(f"gate (c): n_valid_mean {mode}: {a16} against {f32s[0]}")
+        lo, hi = min(r["adx10"] for r in f32s), max(r["adx10"] for r in f32s)
+        b16 = [r[mode]["adx10"] for r in evals["bf16"]]
+        if min(b16) > hi + one + 1e-9 or max(b16) < lo - one - 1e-9:
+            raise AssertionError(f"gate (c): adx10 {mode}: bf16 {b16} against the f32 "
+                                 f"path's seeds [{lo}, {hi}] +- 1/{n}")
+
+
+def phase_trained(device, backbone="hrnet_w18", n=64, steps_n=400, log_every=200,
+                  train_s=120.0, train_batch=32, data_root=None, trained_gates=True,
+                  deadline=None, seed=0):
+    """Trained weights through the kernels: (a) the overfit recipe of
+    tools/diag_overfit.py through the port's tool at `backbone`'s width
+    (512 keypoints, K=20, bf16, aux 1.0) on `n` fixed crops, its curve
+    printed beside the JAX run's and gated at OVERFIT_GATE_STEP; (b) the
+    trained InitNet in eval mode on the crops, bf16 through the kernels'
+    route rule ("tc" on the card) and through the plain EdgeConv, an f32
+    copy (route "fma") and the f32 copy through the plain EdgeConv; (c) the
+    InitNet grafted into a PoseNet at the flagship's width
+    (create_pose_state's handoff), trained for `train_s` seconds at
+    `train_batch` on the same crops, its heads in bf16 through "tc" and
+    through the plain EdgeConv and on an f32 copy ("fma"), where bf16
+    leaves f32 (_bf16_drift), then ServingPipeline and evaluate_pipeline in
+    bf16 and on the f32 copy.
+    Gates raise. `trained_gates=False` (a CPU rehearsal at tiny size, whose
+    weights learn nothing in a few steps) leaves out the gates that hold on
+    trained weights only: (a), the bf16 bit bars of (b) and (c), and (c)'s
+    n_valid and adx10; the f32-against-plain and launch gates stay.
+    `deadline` (perf_counter seconds): (c) trains for less than `train_s`,
+    TRAIN_MIN_S at least, where that is needed to end by then."""
+    from checkerpose_tpu_torch.cli import common
+    from checkerpose_tpu_torch.eval import harness
+    from checkerpose_tpu_torch.eval import metrics as M
+    from checkerpose_tpu_torch.models.init_net import InitNet
+    from checkerpose_tpu_torch.models.posenet import PoseNet, knn_tensor
+    from checkerpose_tpu_torch.serving import ServingPipeline
+    from checkerpose_tpu_torch.tools import diag_overfit
+    from checkerpose_tpu_torch.train import steps
+    from checkerpose_tpu_torch.train.state import create_pose_state, make_optimizer
+
+    on_card = device.type == "cuda"
+    launches = {}
+    res = {"backbone": backbone, "crops": n}
+
+    # --- (a) the overfit recipe --------------------------------------------------------
+    argv = ["--device", device.type, "--backbone", backbone, "--n", str(n), "--steps",
+            str(steps_n), "--log_every", str(log_every), "--aux", "1.0", "--seed", str(seed)]
+    if data_root is not None:
+        argv += ["--root", str(data_root)]
+    t0 = time.perf_counter()
+    out, launches["trained_recipe"] = _counted(lambda: diag_overfit.run(
+        diag_overfit.parse_args(argv)))
+    recipe_s = time.perf_counter() - t0
+    curve = out["curve"]
+    res["recipe"] = {"steps": steps_n, "s": recipe_s if on_card else None,
+                     "s_per_step": curve[-1]["s_per_step"] if on_card else None,
+                     "curve": [dict(c, bit_err=[float(v) for v in c["bit_err"]])
+                               for c in curve]}
+    for line in _overfit_table(curve):
+        say(f"[trained] (a) {line}")
+    gate = _gate_overfit(curve, min(OVERFIT_GATE_STEP, steps_n))
+    res["recipe"]["gate"] = gate
+    say(f"[trained] (a) {steps_n} steps of the recipe ({backbone}, 512 keypoints, K=20, bf16, "
+        f"Adam 2e-4, aux 1.0, {n} fixed crops) in {res['recipe']['s']} s, "
+        f"{res['recipe']['s_per_step']} s a step with the evals; at step {gate['gate_step']}: "
+        f"RoI bit error {gate['roi']:.4f} (bar {OVERFIT_ROI_MAX}), x / y MSB "
+        f"{gate['x_msb']:.3f} / {gate['y_msb']:.3f} (bar {OVERFIT_MSB_MAX}; JAX 0.140 / 0.204, "
+        f"chance 0.5); last loss / first {gate['loss_ratio']:.3f} (bar {OVERFIT_LOSS_RATIO}); "
+        f"EdgeConv launches in the evals {launches['trained_recipe']}")
+    if trained_gates and not gate["passed"]:
+        raise AssertionError(f"gate (a): the recipe did not learn what JAX's did: {gate}")
+
+    # --- (b) the trained InitNet through the kernels -----------------------------------
+    t_b = time.perf_counter()
+    net = out["state"].module.eval()
+    batch, knn, xyz, normed = out["batch"], out["knn"], out["xyz"], out["normed"]
+    knn_t = knn_tensor(knn, len(xyz), device)
+    imgs = steps.device_augment_normalize(torch.as_tensor(batch["image"], device=device), None,
+                                          False, False, train=False).permute(0, 3, 1, 2)
+    net32 = _f32_copy(net, lambda: InitNet(npoint=len(xyz), res_log2=net.res_log2,
+                                           backbone_name=backbone, dtype=torch.float32))
+    with torch.no_grad(), _OutputTerms(net32) as terms:
+        bits16, launches["trained_init_bf16"] = _counted(lambda: net(imgs, knn_t)[0])
+        bits32, launches["trained_init_f32"] = _counted(lambda: net32(imgs, knn_t)[0])
+        init_terms = terms.terms["init"]
+        with _PlainEdgeConv():
+            plain, launches["trained_init_plain"] = _counted(lambda: net32(imgs, knn_t)[0])
+            plain16, launches["trained_init_plain_bf16"] = _counted(lambda: net(imgs, knn_t)[0])
+    tc_fma = _bit_agreement(bits16, bits32, init_terms)
+    tc_plain = _bit_agreement(bits16, plain16, init_terms)
+    fma_plain = _bit_agreement(bits32, plain)
+    reports = {}
+    for name, module in (("bf16", net), ("f32", net32)):
+        reports[name], launches[f"trained_init_eval_{name}"] = _counted(
+            lambda m=module: harness.evaluate_init(m, knn, [batch], diag_overfit.CROP_SIZE_GT))
+    bit_err_diff = float(np.abs(reports["bf16"]["bit_err"] - reports["f32"]["bit_err"]).max())
+    res["init_kernels"] = {"tc_vs_fma": tc_fma, "tc_vs_plain_bf16": tc_plain,
+                           "fma_vs_plain": fma_plain,
+                           "bit_err_max_diff": bit_err_diff,
+                           "evaluate_init": {k: {m: (v.tolist() if isinstance(v, np.ndarray)
+                                                     else v) for m, v in r.items()}
+                                             for k, r in reports.items()}}
+    say(f"[trained] (b) the trained InitNet on the {n} crops: bf16 (EdgeConv launches "
+        f"{launches['trained_init_bf16']}) against its f32 copy ({launches['trained_init_f32']}): "
+        f"{tc_fma['differ']} of {tc_fma['bits']} bits differ ({tc_fma['share']:.5f}, bar "
+        f"{BIT_SHARE}), {tc_fma['beyond_bar']} of them where |f32 logit| exceeds 2^-4 of "
+        f"its terms (largest |logit| {tc_fma['largest_abs_logit']:.3f}, max |logit diff| "
+        f"{tc_fma['max_abs_logit_diff']:.4f}); bf16 against the bf16 net with the plain "
+        f"EdgeConv ({launches['trained_init_plain_bf16']}): {tc_plain['differ']} bits differ, "
+        f"{tc_plain['beyond_bar']} beyond the bar, max |logit diff| "
+        f"{tc_plain['max_abs_logit_diff']:.2e}; f32 copy against the plain "
+        f"EdgeConv ({launches['trained_init_plain']}): {fma_plain['differ']} bits differ, max "
+        f"|logit diff| {fma_plain['max_abs_logit_diff']:.2e}; evaluate_init bit errors differ "
+        f"by at most {bit_err_diff:.4f} (bar 0.01): bf16 {reports['bf16']['bit_err'].round(4)}, "
+        f"test_acc {reports['bf16']['test_acc']:.4f}; f32 "
+        f"{reports['f32']['bit_err'].round(4)}, test_acc {reports['f32']['test_acc']:.4f}")
+    _check_bits("gate (b): fma against the plain version", fma_plain, exact=True)
+    if trained_gates:
+        _check_bits("gate (b): tc against fma", tc_fma)
+        _check_bits("gate (b): tc against the plain version in bf16", tc_plain)
+    if trained_gates and bit_err_diff > 0.01:
+        raise AssertionError(f"gate (b): evaluate_init's bit errors differ by {bit_err_diff}")
+
+    # --- (c) the grafted PoseNet on the main path --------------------------------------
+    t_c = time.perf_counter()
+    cfg = dict(npoint=len(xyz), backbone_name=backbone, **POSENET_CFG)
+    pose_batch, *_ = diag_overfit.load_batch(out["root"], n, False, crop_size_gt=64)
+    pose_batch = common.attach_p3d(pose_batch, normed)
+    state = create_pose_state(PoseNet(**cfg), make_optimizer(1e-4), seed=seed,
+                              init_params=net.state_dict(), device=device)
+    pose = state.module
+    step = steps.make_train_step(pose, knn_t, stage=3, color_aug_prob=0.0)
+    chunks = [_on(device, {k: v[i:i + train_batch] for k, v in pose_batch.items()})
+              for i in range(0, n, train_batch)]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    losses, t0 = [], time.perf_counter()
+    if deadline is not None:
+        train_s = max(TRAIN_MIN_S, min(train_s, deadline - t0 - POSE_TAIL_S))
+    while not losses or time.perf_counter() - t0 < train_s:
+        metrics = step(state, chunks[len(losses) % len(chunks)], gen)
+        losses.append(metrics["loss"])
+    losses = [float(v) for v in losses]
+    train_wall = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"gate (c): non-finite train losses {losses}")
+    pose.eval()
+    pose32 = _f32_copy(pose, lambda: PoseNet(**cfg, dtype=torch.float32))
+
+    heads_img = steps.device_augment_normalize(torch.as_tensor(pose_batch["image"],
+                                                               device=device),
+                                               None, False, False, train=False)
+
+    def heads(module):
+        with torch.no_grad():
+            return module(heads_img, knn_t, stage=3)
+
+    o16, launches["trained_pose_bf16"] = _counted(lambda: heads(pose))
+    with _PlainEdgeConv():
+        o16p, launches["trained_pose_plain_bf16"] = _counted(lambda: heads(pose))
+    with _OutputTerms(pose32) as terms:
+        o32, launches["trained_pose_f32"] = _counted(lambda: heads(pose32))
+    t = {"roi": terms.terms["init"][..., :1], "x_init": terms.terms["init"][..., 1:4],
+         "y_init": terms.terms["init"][..., 4:7], "seg": terms.terms["seg"]}
+    kernel_agree = _compare_heads(o16, o16p, t)
+    precision = _precision_gate(o16, o16p, o32)
+    drift = _bf16_drift(pose, pose32, lambda: PoseNet(**cfg), heads_img, knn_t)
+
+    def serve(module):
+        pipe = ServingPipeline(module, knn, xyz, normed, device=device)
+        sol, by_route = _counted(lambda: pipe(
+            pose_batch["image"], pose_batch["bbox"], pose_batch["cam_K"],
+            torch.Generator(device=device).manual_seed(seed)))
+        with torch.inference_mode():
+            _, valid = pipe.correspondences(torch.as_tensor(pose_batch["image"], device=device),
+                                            torch.as_tensor(pose_batch["bbox"], device=device))
+        errs = M.batched_pose_errors(sol["R"], sol["t"],
+                                     torch.as_tensor(pose_batch["R"], device=device),
+                                     torch.as_tensor(pose_batch["t"], device=device),
+                                     torch.as_tensor(xyz, dtype=torch.float32, device=device))
+        ok = sol["success"].bool() & (errs["adx"] < 0.1 * diameter)
+        return {"n_valid": int(valid.sum()), "success": float(sol["success"].float().mean()),
+                "adx10": float(ok.float().mean())}, by_route
+
+    diameter = common.object_diameter({"bop_path": out["root"], "dataset_name": "synth",
+                                       "obj_id": 1})
+    serving = {}
+    for name, module in (("bf16", pose), ("f32", pose32)):
+        serving[name], launches[f"trained_serving_{name}"] = serve(module)
+    eval_batches = [dict(c) for c in ({k: v[i:i + train_batch] for k, v in pose_batch.items()}
+                                      for i in range(0, n, train_batch))]
+    evals = {}
+    for name, module in (("bf16", pose), ("f32", pose32)):
+        evals[name] = []
+        for s in (0, 1, 2):
+            rep, by_route = _counted(lambda m=module, s=s: harness.evaluate_pipeline(
+                m, knn, eval_batches, xyz, diameter, stage=3, seed=s))
+            launches[f"trained_eval_{name}_seed{s}"] = by_route
+            evals[name].append({mode: rep[mode] for mode in harness.FILTER_MODES})
+    res["pose"] = {"train_steps": len(losses), "train_s": train_wall if on_card else None,
+                   "train_budget_s": train_s, "train_batch": train_batch, "losses_first_last": [losses[0], losses[-1]],
+                   "kernel_bits": kernel_agree, "precision_bits": precision,
+                   "bf16_drift": drift,
+                   "serving": serving, "evaluate_pipeline": evals}
+    say(f"[trained] (c) the InitNet grafted into a PoseNet ({backbone}, {len(xyz)} keypoints, "
+        f"res_log2 6, stage 3), make_train_step for {len(losses)} steps in "
+        f"{res['pose']['train_s']} s at batch {train_batch} (loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}); EdgeConv launches a forward bf16 {launches['trained_pose_bf16']}, "
+        f"with the plain EdgeConv {launches['trained_pose_plain_bf16']}, f32 "
+        f"{launches['trained_pose_f32']}")
+    say("[trained] (c) the kernel: bf16 through tc against bf16 through the plain EdgeConv, "
+        "bits differing by head (where held: share; beyond 2^-4 of the terms; the largest "
+        "|logit| / terms at a flip; max |diff| of the largest |logit|): "
+        + ", ".join(f"{k} {a['differ']}/{a['bits']}"
+                    + (f" (held {a['held_differ']}/{a['held_bits']})" if "held_bits" in a else "")
+                    + f" ({a.get('held_share', a['share']):.5f}; {a.get('beyond_bar', '-')}; "
+                    f"{a.get('worst_logit_over_terms_at_a_flip', float('nan')):.4f}; "
+                    f"{a['max_abs_logit_diff']:.3f} of {a['largest_abs_logit']:.2f})"
+                    for k, a in kernel_agree.items()))
+    say("[trained] (c) the precision: bf16 (tc) against f32 (fma) by head: share of bits "
+        "differing (bar; the plain bf16's share), the largest |f32 logit| at a flip (bar: the "
+        "plain bf16's largest |bf16 - f32|): "
+        + ", ".join(f"{k} {a['share']:.5f} ({a['share_bar']:.5f}; {a['plain_share']:.5f}), "
+                    f"{a['worst_abs_logit_at_a_flip']:.3f} ({a['plain_max_abs_diff']:.3f})"
+                    for k, a in precision.items()))
+    say("[trained] (c) bf16 against the f32 copy, relative L2 by module output: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in drift["layer_rel_l2"].items())
+        + f"; the bf16 net on the CPU (plain EdgeConv) against the f32 copy on "
+        f"{drift['cpu_crops']} crops, share of bits differing by head: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in drift["cpu_bf16_vs_f32_share"].items()))
+    for name in ("bf16", "f32"):
+        say(f"[trained] (c) ServingPipeline {name} on the {n} crops: n_valid "
+            f"{serving[name]['n_valid']}, success {serving[name]['success']:.3f}, adx10 "
+            f"{serving[name]['adx10']:.3f}; launches {launches[f'trained_serving_{name}']}")
+        for mode in harness.FILTER_MODES:
+            say(f"[trained] (c) evaluate_pipeline {name}, {mode}: adx02/05/10 "
+                f"{[(r[mode]['adx02'], r[mode]['adx05'], r[mode]['adx10']) for r in evals[name]]}"
+                f", n_valid_mean {[r[mode]['n_valid_mean'] for r in evals[name]]}, AUC "
+                f"{[round(r[mode]['auc_posecnn'], 4) for r in evals[name]]}")
+    t_end = time.perf_counter()
+    res["part_s"] = ({"a": recipe_s, "b": t_c - t_b, "c": t_end - t_c, "c_eval": t_end - t_c
+                      - train_wall} if on_card else None)
+    say(f"[trained] seconds by part: {res['part_s']}")
+    if trained_gates:
+        _gate_pose_bf16(kernel_agree, precision, serving, evals, n)
+    _gate_trained_launches(launches, on_card, len(curve), len(eval_batches))
+    res["launches_by_path"] = launches
+    return res
+
+
 KERNELS = {
     "tc": dict(name="edgeconv_fused_tc", source="checkerpose_tpu_torch/csrc/edgeconv_tc.cu",
                dtype="bfloat16", phase="serving",
@@ -3473,11 +4049,14 @@ KERNELS = {
                     "backbones, the timm grafts, the pretrain CLI after the NOCS graft and "
                     "the test CLI on resnet34; 0 in NOCS pretraining; phase parallel: 11 an "
                     "eval batch of the data-parallel train CLI (and of the native-loader "
-                    "test CLI where that runs); 0 in the 2-rank f32 step"),
+                    "test CLI where that runs); 0 in the 2-rank f32 step; phase trained: "
+                    "the trained InitNet's and the grafted PoseNet's bf16 forwards, "
+                    "evaluate_init, ServingPipeline and evaluate_pipeline"),
     "fma": dict(name="edgeconv_fused_fma", source="checkerpose_tpu_torch/csrc/edgeconv.cu",
                 dtype="float32", phase="reference",
-                path="f32 forward (phase reference, and phase backbones (c) on every "
-                     "backbone); the bf16 serving path no longer launches this kernel"),
+                path="f32 forward (phase reference, phase backbones (c) on every "
+                     "backbone, and phase trained's f32 copies of the trained InitNet and "
+                     "PoseNet); the bf16 serving path no longer launches this kernel"),
 }
 
 
@@ -3572,25 +4151,38 @@ def main(argv=None) -> int:
     card = CARD = gpu_name_power()
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    phase_build()
-    rows = phase_kernels(device, seed=args.seed)
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        say(f"[script] phase {name}: {phase_s[name]} s, {time.perf_counter() - t_start:.1f} s "
+            f"since the start")
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, device, seed=args.seed)
     if args.steps:
-        phase_steps(device, seed=args.seed)
-    serving = phase_serving(device, seed=args.seed, profile_dir=args.profile)
-    reference = phase_reference(device, seed=args.seed)
-    phase_oracle(device, seed=args.seed)
-    fold = phase_fold_cost(device)
-    train = phase_train(device, seed=args.seed, profile_dir=args.profile)
-    evaluation = phase_eval(device, seed=args.seed)
-    workflow = phase_workflow(device, seed=args.seed)
-    lm = phase_lm(device, seed=args.seed, single_object_train=workflow["train"])
-    backbones = phase_backbones(device, seed=args.seed,
-                                data_root=ROOT / "build" / "workflow_smoke" / "data",
-                                hrnet_w18_crops_per_s=serving["crops_per_s"])
-    parallel = phase_parallel(
-        device, seed=args.seed, data_root=ROOT / "build" / "workflow_smoke" / "data",
+        timed("steps", phase_steps, device, seed=args.seed)
+    serving = timed("serving", phase_serving, device, seed=args.seed, profile_dir=args.profile)
+    reference = timed("reference", phase_reference, device, seed=args.seed)
+    timed("oracle", phase_oracle, device, seed=args.seed)
+    fold = timed("fold", phase_fold_cost, device)
+    train = timed("train", phase_train, device, seed=args.seed, profile_dir=args.profile)
+    evaluation = timed("eval", phase_eval, device, seed=args.seed)
+    workflow = timed("workflow", phase_workflow, device, seed=args.seed)
+    lm = timed("lm", phase_lm, device, seed=args.seed, single_object_train=workflow["train"])
+    backbones = timed("backbones", phase_backbones, device, seed=args.seed,
+                      data_root=ROOT / "build" / "workflow_smoke" / "data",
+                      hrnet_w18_crops_per_s=serving["crops_per_s"])
+    parallel = timed(
+        "parallel", phase_parallel, device, seed=args.seed,
+        data_root=ROOT / "build" / "workflow_smoke" / "data",
         init_root=ROOT / "build" / "workflow_smoke" / "ckpt_pre" / Path(PRETRAIN_CFG).stem,
         single_train=workflow["train"])
+    trained = timed("trained", phase_trained, device, seed=args.seed,
+                    deadline=t_start + SCRIPT_BUDGET_S)
 
     launches = {"tc": serving["edgeconv_launches_by_route"]["tc"],
                 "fma": reference["f32"]["edgeconv_launches_by_route"]["fma"]}
@@ -3602,17 +4194,19 @@ def main(argv=None) -> int:
     print(json.dumps({"lm": lm, "card": card}))
     print(json.dumps({"backbones": backbones, "card": card}))
     print(json.dumps({"parallel": parallel, "card": card}))
+    print(json.dumps({"trained": trained, "card": card}))
     script_s = time.perf_counter() - t_start
-    say(f"[script] {script_s:.1f} s from the start to the end of the last phase")
+    say(f"[script] {script_s:.1f} s from the start to the end of the last phase; by phase "
+        f"{phase_s}")
     lm_paths = lm["launches_by_path"]
     print(json.dumps({"kernels": kernel_summary(
         rows, launches, train["eval_after_training"]["edgeconv_launches_by_route"],
         evaluation["hard"]["edgeconv_launches_by_route"], eval_rows,
         {**workflow["launches_by_path"], **lm_paths, **backbones["launches_by_path"],
-         **parallel_launches(parallel)}),
+         **parallel_launches(parallel), **trained["launches_by_path"]}),
         "lm_path_launches": {k: sum(p[k] for p in lm_paths.values())
                              for k in ("tc", "fma", "per_sample")},
-        "script_s": script_s}))
+        "script_s": script_s, "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

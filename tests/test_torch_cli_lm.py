@@ -31,9 +31,8 @@ from checkerpose_tpu_torch.eval import harness as pharness
 from checkerpose_tpu_torch.models.convert import flax_to_torch
 from checkerpose_tpu_torch.models.graph import EdgeConv
 from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
-from test_torch_harness import _assert_reports_equal
-from torch_parity import (N_HYP, few_torch_threads, load_port,  # noqa: F401 (fixture)
-                          random_variables, standin_solver)
+from torch_parity import (N_HYP, assert_reports_equal, few_torch_threads,  # noqa: F401
+                          load_port, random_variables, standin_solver)
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -160,9 +159,9 @@ def test_evaluate_pipeline_stacked_table_matches_jax(jfixture, monkeypatch):
                                          diameter, **kw)
         got = pharness.evaluate_pipeline(net, knn, batches, table[obj_id], diameter, **kw)
         assert got["n_images"] == 2
-        _assert_reports_equal(ref, got)
+        assert_reports_equal(ref, got)
         ref = jharness.evaluate_init(finit, knn, ivars, [dict(b) for b in batches], 64)
-        _assert_reports_equal(ref, pharness.evaluate_init(init, knn, batches, 64))
+        assert_reports_equal(ref, pharness.evaluate_init(init, knn, batches, 64))
 
 
 def test_lm_entry_points_default_to_the_card():

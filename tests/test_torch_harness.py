@@ -27,8 +27,8 @@ from checkerpose_tpu_torch.eval import harness as pharness
 from checkerpose_tpu_torch.models.init_net import InitNet
 from checkerpose_tpu_torch.models.posenet import PoseNet
 from checkerpose_tpu_torch.ops.knn import knn_index
-from torch_parity import (N_HYP, few_torch_threads, load_port,  # noqa: F401 (fixture)
-                          random_variables, standin_solver)
+from torch_parity import (N_HYP, assert_reports_equal,  # noqa: F401 (fixture)
+                          few_torch_threads, load_port, random_variables, standin_solver)
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -60,27 +60,6 @@ def setup(tmp_path_factory):
                                                  "obj_id": 1}))
 
 
-def _assert_reports_equal(a, b):
-    """JAX report a against port report b: same keys, same numbers (f32
-    summation order aside), same exported poses."""
-    assert sorted(a) == sorted(b)
-    for k in a:
-        if k == "poses":
-            assert len(a[k]) == len(b[k])
-            for pa, pb in zip(a[k], b[k]):
-                assert (pa["scene_id"], pa["im_id"], pa["score"]) == \
-                    (pb["scene_id"], pb["im_id"], pb["score"])
-                np.testing.assert_allclose(pb["R"], pa["R"], atol=1e-5)
-                np.testing.assert_allclose(pb["t"], pa["t"], rtol=1e-5, atol=1e-4)
-        elif isinstance(a[k], dict):
-            assert sorted(a[k]) == sorted(b[k]), k
-            for m in a[k]:
-                np.testing.assert_allclose(b[k][m], a[k][m], rtol=1e-5, atol=1e-5,
-                                           err_msg=f"{k}.{m}")
-        else:
-            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-6, err_msg=k)
-
-
 @pytest.mark.parametrize("decode_mode,judge_bits,bd", [("hard", None, 0), ("soft", 3, 0),
                                                       ("adaptive", None, 2)])
 def test_evaluate_pipeline_matches_jax(setup, monkeypatch, decode_mode, judge_bits, bd):
@@ -95,7 +74,7 @@ def test_evaluate_pipeline_matches_jax(setup, monkeypatch, decode_mode, judge_bi
     got = pharness.evaluate_pipeline(s["net"], s["knn"], s["batches"], s["xyz"],
                                      s["diameter"], **kw)
     assert got["n_images"] == 5 and sum(p["score"] == -1.0 for p in got["poses"]) >= 1
-    _assert_reports_equal(ref, got)
+    assert_reports_equal(ref, got)
 
 
 def test_calibrate_tau_and_empty_loader_match_jax(setup, monkeypatch):
@@ -113,7 +92,7 @@ def test_calibrate_tau_and_empty_loader_match_jax(setup, monkeypatch):
     ref = jharness.evaluate_pipeline(s["fnet"], s["knn"], s["variables"], [], s["xyz"],
                                      s["diameter"], stage=3)
     got = pharness.evaluate_pipeline(s["net"], s["knn"], [], s["xyz"], s["diameter"], stage=3)
-    _assert_reports_equal(ref, got)
+    assert_reports_equal(ref, got)
 
 
 def test_evaluate_init_matches_jax(setup):
@@ -126,10 +105,10 @@ def test_evaluate_init_matches_jax(setup):
         ref = jharness.evaluate_init(fnet, s["knn"], variables,
                                      [dict(b) for b in s["batches"]], 64, metric)
         got = pharness.evaluate_init(net, s["knn"], s["batches"], 64, metric)
-        _assert_reports_equal(ref, got)
+        assert_reports_equal(ref, got)
     ref = jharness.evaluate_init(fnet, s["knn"], variables, [], 64)
     got = pharness.evaluate_init(net, s["knn"], [], 64)
-    _assert_reports_equal(ref, got)
+    assert_reports_equal(ref, got)
 
 
 def test_port_harness_with_its_own_solver(setup):

@@ -98,3 +98,24 @@ def standin_solver(p3d, p2d, valid, K, _draws, device=None, **kw):
         return sol
     import jax.numpy as jnp
     return {k: jnp.asarray(v.numpy()) for k, v in sol.items()}
+
+
+def assert_reports_equal(a, b):
+    """JAX report a against port report b: same keys, same numbers (f32
+    summation order aside), same exported poses."""
+    assert sorted(a) == sorted(b)
+    for k in a:
+        if k == "poses":
+            assert len(a[k]) == len(b[k])
+            for pa, pb in zip(a[k], b[k]):
+                assert (pa["scene_id"], pa["im_id"], pa["score"]) == \
+                    (pb["scene_id"], pb["im_id"], pb["score"])
+                np.testing.assert_allclose(pb["R"], pa["R"], atol=1e-5)
+                np.testing.assert_allclose(pb["t"], pa["t"], rtol=1e-5, atol=1e-4)
+        elif isinstance(a[k], dict):
+            assert sorted(a[k]) == sorted(b[k]), k
+            for m in a[k]:
+                np.testing.assert_allclose(b[k][m], a[k][m], rtol=1e-5, atol=1e-5,
+                                           err_msg=f"{k}.{m}")
+        else:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-6, err_msg=k)

@@ -12,8 +12,12 @@ card, and `edgeconv_route` picks one from the dtype and the shapes alone:
   "tc"   `csrc/edgeconv_tc.cu`: bf16, both projections on the tensor cores
          (wgmma), x tiles by asynchronous copies (TMA); needs C % 8 == 0 and
          a graph whose y = x @ W1 chunk fits in shared memory beside its tiles;
-  "fma"  `csrc/edgeconv.cu`: f32 FMA on the CUDA cores, for f32 inputs and
-         for bf16 shapes the tensor-core kernel does not take.
+  "fma"  `csrc/edgeconv.cu`: exact f32 FMA on the CUDA cores (no TF32),
+         register-tiled (8 nodes x 8 channels a thread), x and W tiles by
+         TMA into a 2-stage mbarrier ring (element copies for bf16, C % 4
+         != 0 and x off a 16-byte line), a 64-channel y chunk up to N = 583
+         (`fma_config`); for f32 inputs and for bf16 shapes the tensor-core
+         kernel does not take.
 
 `edgeconv_fused` launches one of them for CUDA tensors and runs
 `edgeconv_fused_plain` for CPU tensors only; for a CUDA tensor it launches a
@@ -44,7 +48,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # Shared-memory constants, mirrored from the two .cu sources (a card test
 # holds these figures against the C functions).
 MAX_SMEM = 232448                   # bytes of shared memory a block may use
-_FMA_CB, _FMA_TN, _FMA_TK = 32, 128, 32
+_FMA_TN, _FMA_STAGES = 256, 2                # nodes of a tile, stages of the ring
+_FMA_CONFIGS = ((64, 32), (32, 32), (32, 16))  # (output, input channels a stage), in order
+_FMA_ALIGN, _FMA_BAR_BYTES = 1024, 64         # ring alignment slack, its mbarriers
 TC_TILE = 64                        # rows, k-columns and channels of a tile
 _TC_TILE_BYTES = TC_TILE * TC_TILE * 2
 _TC_ALIGN = 1024                    # swizzled tiles start on 1024-byte lines
@@ -127,11 +133,32 @@ def _ceil_to(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def _fma_bytes(N: int, chunk: int, tk: int) -> int:
+    """The FMA kernel's ring (x and W boxes of `tk` input channels, f32), its
+    y chunk for all N nodes (f32) and the ring's mbarriers at `chunk` output
+    channels a block."""
+    return (_FMA_ALIGN + 4 * (_FMA_STAGES * tk * (_FMA_TN + chunk) + N * chunk)
+            + _FMA_BAR_BYTES)
+
+
+def fma_config(N: int):
+    """(output channels a block, input channels a ring stage) of the FMA
+    kernel at N: the first of (64, 32), (32, 32), (32, 16) that fits, N <=
+    583, 1231, 1519; past that the last, which does not fit. A launch
+    whose 64-channel chunks would give fewer blocks than the card has SMs
+    (B * ceil(C'/64) < 132 on an H100) takes (32, 32) in their place, in
+    less shared memory than this figure."""
+    for chunk, tk in _FMA_CONFIGS:
+        if _fma_bytes(N, chunk, tk) <= MAX_SMEM:
+            return chunk, tk
+    return _FMA_CONFIGS[-1]
+
+
 def fma_smem_bytes(N: int, K: int) -> int:
-    """Dynamic shared memory of one block of the FMA kernel: its y chunk,
-    z tile, x tile, W tile (f32) and the knn table (int32)."""
-    return 4 * (N * _FMA_CB + _FMA_TN * _FMA_CB + _FMA_TN * (_FMA_TK + 1)
-                + _FMA_TK * _FMA_CB) + 4 * N * K
+    """Dynamic shared memory of one block of the FMA kernel at N's config.
+    K does not enter: the kernel reads knn from device memory."""
+    del K
+    return _fma_bytes(N, *fma_config(N))
 
 
 def _tc_fixed_bytes(N: int, C: int) -> int:

@@ -11,8 +11,8 @@ import torch
 
 from checkerpose_tpu_torch.models.graph import EdgeConv
 from checkerpose_tpu_torch.ops.edgeconv import (
-    MAX_SMEM, _launch, edgeconv_fused, edgeconv_fused_plain, edgeconv_route, fma_smem_bytes,
-    pack_edgeconv_weights, tc_smem_bytes, tc_stages, unpack_edgeconv_weights)
+    MAX_SMEM, _launch, edgeconv_fused, edgeconv_fused_plain, edgeconv_route, fma_config,
+    fma_smem_bytes, pack_edgeconv_weights, tc_smem_bytes, tc_stages, unpack_edgeconv_weights)
 from checkerpose_tpu_torch.ops.knn import knn_index
 from torch_parity import load_port, random_variables, require_cuda
 
@@ -150,6 +150,9 @@ ROUTE_CASES = {
     "n600_narrow_bf16": ((BF16, 600, 20, 64, 64), "tc"),
     "n600_wide_bf16_over_tc_budget": ((BF16, 600, 20, 256, 256), "fma"),
     "n900_bf16_over_tc_budget": ((BF16, 900, 20, 256, 256), "fma"),
+    "n1231_f32_fma_32_channel_chunk": ((F32, 1231, 20, 64, 64), "fma"),
+    "n1477_k1_f32_fma_16_channel_stages": ((F32, 1477, 1, 64, 64), "fma"),
+    "n1520_f32_over_fma": ((F32, 1520, 20, 64, 64), ValueError),
     "n2048_bf16_over_both": ((BF16, 2048, 20, 64, 64), ValueError),
     "n2048_f32_over_fma": ((F32, 2048, 20, 64, 64), ValueError),
     "float16": ((torch.float16, 128, 10, 64, 64), TypeError),
@@ -167,15 +170,46 @@ def test_route_rule(case):
 
 
 def test_shared_memory_figures_of_the_main_path():
-    """N=512, K=20: the FMA kernel's 140.5 KB; the tensor-core kernel's
+    """N=512, K=20: the FMA kernel's 1 KB alignment slack, 2 ring stages of
+    (256 x 32 x box + 32 x 64 W box) f32, its 512 x 64 f32 y chunk and 64
+    bytes of mbarriers; the tensor-core kernel's
     budget at C=256 (1 KB slack + W 32 KB + y 128 KB + z tile 18 KB +
     barriers leave 5 ring stages of 8 KB) and at C=64 (the ring is capped at
     8 stages)."""
     fixed = 1024 + 131072 + 18432 + 256
-    assert fma_smem_bytes(512, 20) == 143872
+    assert fma_smem_bytes(512, 20) == 1024 + 2 * 4 * 32 * (256 + 64) + 4 * 512 * 64 + 64 \
+        == 214080
     assert (tc_stages(512, 256), tc_smem_bytes(512, 256)) == (5, fixed + (4 + 5) * 8192)
     assert (tc_stages(512, 64), tc_smem_bytes(512, 64)) == (8, fixed + (1 + 8) * 8192)
     assert tc_smem_bytes(512, 256) <= MAX_SMEM and tc_smem_bytes(600, 256) == 0
+
+
+def _fma_bytes(N, chunk, tk):
+    return 1024 + 2 * 4 * tk * (256 + chunk) + 4 * N * chunk + 64
+
+
+@pytest.mark.parametrize("N,config", [(65, (64, 32)), (512, (64, 32)), (583, (64, 32)),
+                                      (584, (32, 32)), (900, (32, 32)), (1231, (32, 32)),
+                                      (1232, (32, 16)), (1477, (32, 16)), (1519, (32, 16))])
+def test_fma_config_rule(N, config):
+    """The first of (64, 32), (32, 32), (32, 16) (output channels a block,
+    input channels a ring stage) whose y chunk fits beside the ring; K
+    never enters (knn is read from device memory)."""
+    order = [(64, 32), (32, 32), (32, 16)]
+    assert fma_config(N) == config
+    assert fma_smem_bytes(N, 1) == fma_smem_bytes(N, 64) == _fma_bytes(N, *config) <= MAX_SMEM
+    assert all(_fma_bytes(N, *c) > MAX_SMEM for c in order[:order.index(config)])
+
+
+def test_fma_route_takes_every_shape_the_first_kernel_took():
+    """The first version of the FMA kernel took N, K where 4 (32 N + 128 x
+    32 + 128 x 33 + 32 x 32) + 4 N K bytes fit a block (N <= 1477 at K = 1,
+    937 at K = 20); the route takes all of them, in either dtype."""
+    for K in (1, 7, 20, 64):
+        n_max = max(N for N in range(1, 2048)
+                    if 4 * (32 * N + 128 * 32 + 128 * 33 + 32 * 32) + 4 * N * K <= MAX_SMEM)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert edgeconv_route(dtype, n_max, K, 45, 37) == "fma"
 
 
 @pytest.mark.parametrize("C,Cp", [(64, 64), (48, 40), (256, 128)],
@@ -353,25 +387,25 @@ def _card_inputs(shape, dtype, seed=6, scale_sign=None):
     return x, knn, w1, w2m1, s, bias
 
 
-def _hold_on_card(route, args):
+def _hold_on_card(route, args, slope=0.2):
     """Launch `route` once and hold it against the plain version: f32 at
     2e-3; bf16 against the plain version in f32 on the same bf16-rounded
     inputs at 1e-3 + 2^-8 |ref| (bf16 output rounding)."""
     x, knn, w1, w2m1, s, bias = args
     before = dict(edgeconv_fused.launches_by_route)
     total = edgeconv_fused.launches
-    out = _launch(route, *args)
+    out = _launch(route, *args, slope=slope)
     torch.cuda.synchronize()
     other = "fma" if route == "tc" else "tc"
     assert edgeconv_fused.launches == total + 1
     assert edgeconv_fused.launches_by_route[route] == before[route] + 1
     assert edgeconv_fused.launches_by_route[other] == before[other]
-    _assert_close_to_plain(out, args)
+    _assert_close_to_plain(out, args, slope)
 
 
-def _assert_close_to_plain(out, args):
+def _assert_close_to_plain(out, args, slope=0.2):
     x, knn, w1, w2m1, s, bias = args
-    ref = edgeconv_fused_plain(x.float(), knn, w1.float(), w2m1.float(), s, bias)
+    ref = edgeconv_fused_plain(x.float(), knn, w1.float(), w2m1.float(), s, bias, slope)
     if x.dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
     else:
@@ -489,18 +523,104 @@ def test_kernel_node_counts_off_the_tile(n_):
         _hold_on_card(route, _card_inputs((2, n_, 64, 64, 20), dtype))
 
 
+FMA_DTYPES = [torch.float32, torch.bfloat16]
+FMA_EDGES = {
+    # name: (B, N, C, C', K) at the edges of the FMA kernel's tiles: input
+    # channels off its 4-wide and 16-deep steps, output channels off its
+    # 4-wide groups and 64-channel chunk, nodes off its 256-node tile, the
+    # 32-channel chunk (N > 583) and 16-channel stages (N > 1231), one and
+    # many neighbours, one batch row (32-channel chunks: fewer blocks than
+    # SMs) and enough rows for 64-channel chunks
+    "c3": (2, 128, 3, 64, 10),
+    "c45": (2, 128, 45, 64, 10),
+    "cp37": (2, 128, 64, 37, 10),
+    "cp40": (2, 128, 64, 40, 10),
+    "n65": (2, 65, 64, 64, 20),
+    "n100": (2, 100, 48, 40, 7),
+    "n600": (2, 600, 256, 256, 20),
+    "n900_32_channel_chunk": (2, 900, 64, 96, 20),
+    "n1400_16_channel_stages": (1, 1400, 48, 40, 3),
+    "k1": (2, 128, 64, 64, 1),
+    "k7": (2, 128, 64, 64, 7),
+    "k32": (2, 128, 64, 64, 32),
+    "b1": (1, 512, 256, 256, 20),
+    "b200_64_channel_chunks": (200, 512, 64, 64, 20),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", FMA_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FMA_EDGES))
+def test_fma_kernel_at_the_edges_of_its_tiling(case, dtype):
+    require_cuda()
+    b_, n_, c_, cp_, k_ = FMA_EDGES[case]
+    _hold_on_card("fma", _card_inputs((b_, n_, c_, cp_, k_), dtype))
+
+
+def _off_the_line(x):
+    """A contiguous copy of x whose data starts one element past a 16-byte line."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", FMA_DTYPES, ids=["f32", "bf16"])
+def test_fma_kernel_takes_x_off_a_16_byte_line(dtype):
+    """The wrapper sends such a view to "fma" in either dtype (C % 8 == 0
+    would take bf16 to "tc" on a 16-byte line)."""
+    require_cuda()
+    x, *rest = _card_inputs((2, 512, 64, 64, 20), dtype)
+    args = (_off_the_line(x), *rest)
+    before = edgeconv_fused.launches_by_route["fma"]
+    out = edgeconv_fused(*args)
+    torch.cuda.synchronize()
+    assert edgeconv_fused.launches_by_route["fma"] == before + 1
+    _assert_close_to_plain(out, args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", FMA_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("slope", [0.2, 0.0], ids=["slope0.2", "slope0"])
+def test_fma_kernel_negative_scales_and_slope(dtype, slope):
+    """Every third channel's scale negative (the min branch beside the max
+    one in one chunk), and a plain ReLU."""
+    require_cuda()
+    x, knn, w1, w2m1, s, bias = _card_inputs((2, 512, 256, 256, 20), dtype)
+    s = s.abs() + 0.1
+    s[::3] *= -1.0
+    _hold_on_card("fma", (x, knn, w1, w2m1, s, bias), slope=slope)
+
+
 @pytest.mark.gpu
 def test_python_shared_memory_figures_equal_the_c_functions():
     require_cuda()
     from checkerpose_tpu_torch.ops.edgeconv import _lib
     fma, tc = _lib("fma"), _lib("tc")
     assert fma.edgeconv_fused_max_smem_bytes() == MAX_SMEM
-    for n_, k_ in [(512, 20), (100, 7), (65, 10), (600, 20), (1100, 20), (2048, 20)]:
+    for n_, k_ in [(512, 20), (100, 7), (65, 10), (583, 20), (584, 20), (1231, 20),
+                   (1232, 1), (1519, 32), (1520, 20), (2048, 20)]:
         assert fma.edgeconv_fused_smem_bytes(n_, k_) == fma_smem_bytes(n_, k_)
     for n_, c_ in [(512, 64), (512, 256), (100, 48), (65, 64), (600, 64), (600, 256),
                    (900, 256), (2048, 64)]:
         assert tc.edgeconv_tc_stages(n_, c_) == tc_stages(n_, c_)
         assert tc.edgeconv_tc_smem_bytes(n_, c_) == tc_smem_bytes(n_, c_)
+
+
+def test_ablation_builds_apply_to_the_source():
+    """tools/edgeconv_ablation.py's builds are text substitutions of
+    csrc/edgeconv.cu; each must still apply and change what it says."""
+    from checkerpose_tpu_torch.tools import edgeconv_ablation as ab
+    src = ab.variant_sources()
+    assert sorted(src) == ["bare", "kernel", "no_copies", "no_gather"]
+    assert src["kernel"] == ab._build.SOURCES["edgeconv"].read_text()
+    assert "mbar_wait(&full[st]" in src["kernel"] and "mbar_wait(&full[st]" not in src["no_copies"]
+    assert "g < 0; ++g) {\n    const float4 v" in src["no_gather"]
+    assert len({src[k] for k in src}) == 4
+    if not torch.cuda.is_available():
+        assert ab.main([]) == 1                  # the tool refuses the CPU
 
 
 @pytest.mark.gpu

@@ -92,6 +92,37 @@ def test_chip_smoke_trained_phase_rehearsed_on_cpu(tmp_path):
     # off the card the plain version is the CPU path itself: bf16 against it is exact
     assert all(a["differ"] == 0 for a in pose["kernel_bits"].values())
     assert init["tc_vs_plain_bf16"]["differ"] == 0
-    assert len(pose["evaluate_pipeline"]["f32"]) == len(pose["evaluate_pipeline"]["bf16"]) == 3
+    evals = pose["evaluate_pipeline"]
+    assert len(evals["f32"]) == len(evals["bf16"]) == len(evals["bf16_plain"]) == 3
+    # off the card "tc" is the plain version, so the two bf16 paths report alike
+    assert json.dumps(evals["bf16_plain"]) == json.dumps(evals["bf16"])  # NaN AUC alike
     assert all(v == {"tc": 0, "fma": 0} for v in res["launches_by_path"].values())
     json.dumps(res)
+
+
+def _crops(*counts):
+    return [c / 64 for c in counts]
+
+
+@pytest.mark.parametrize("tc, plain, f32, held", [
+    # the three paths alike
+    (_crops(63, 64, 63), _crops(63, 63, 64), _crops(64, 63, 63), True),
+    # "tc" one crop under the plain bf16 path's range: the seeds' own spread
+    (_crops(60, 61, 60), _crops(62, 63, 62), _crops(62, 63, 63), True),
+    # "tc" two crops under it on every seed: the kernel costs accuracy
+    (_crops(59, 60, 59), _crops(62, 63, 62), _crops(62, 63, 63), False),
+    # ... and two over it: the kernel is held both ways
+    (_crops(64, 64, 64), _crops(60, 61, 61), _crops(61, 62, 62), False),
+    # both bf16 paths three crops under f32 (bf16's own shortfall)
+    (_crops(60, 61, 59), _crops(60, 60, 61), _crops(63, 63, 63), True),
+    # "tc" as far under f32 as the plain bf16 path, less its spread
+    (_crops(59, 59, 59), _crops(58, 61, 61), _crops(64, 64, 64), False),
+    # bf16 over f32 as far as the plain bf16 path is
+    (_crops(64, 64, 63), _crops(64, 63, 64), _crops(60, 61, 60), True),
+])
+def test_adx10_gate_of_the_trained_phase(tc, plain, f32, held):
+    """Gate (c)'s adx10 check on crop counts of 64: "tc" within one crop of
+    the plain bf16 path's range over the solver seeds, and within one crop of
+    the f32 path's range beyond the plain bf16 path's own distance from it."""
+    why = chip_smoke._adx10_gate(tc, plain, f32, 64)
+    assert (why is None) == held, why

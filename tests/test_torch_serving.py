@@ -138,18 +138,28 @@ def test_chip_smoke_phases_rehearsed_on_cpu():
     dev = torch.device("cpu")
     rows = chip_smoke.phase_kernels(dev, B=1, N=32, K=4, widths=(64, 256), iters=1,
                                     plain_iters=1)
-    # 2 widths + 1 ragged shape, each through tc/bf16, fma/f32 and fma/bf16
-    assert len(rows) == 9 and all(r["ms"] is None for r in rows)
+    # 2 widths + 1 ragged shape, each through tc/bf16, fma/f32 and fma/bf16;
+    # an odd C and x off a 16-byte line through fma/f32 and fma/bf16
+    assert len(rows) == 13 and all(r["ms"] is None for r in rows)
     assert sum(r["ragged"] for r in rows) == 3
+    assert sorted((r["case"], r["kernel"], r["dtype"]) for r in rows
+                  if r["case"] in ("odd_c", "off_line")) == [
+        ("odd_c", "fma", "bfloat16"), ("odd_c", "fma", "float32"),
+        ("off_line", "fma", "bfloat16"), ("off_line", "fma", "float32")]
+    assert all(r["bound_share"] is None and r["cublas_projections_ms"] is None for r in rows)
     assert sorted({(r["kernel"], r["dtype"]) for r in rows}) == [
         ("fma", "bfloat16"), ("fma", "float32"), ("tc", "bfloat16")]
     serving = chip_smoke.phase_serving(dev, batch=2, npoint=NPT, backbone="hrnet_w18_small",
                                        warm=1, iters=1)
     assert serving["edgeconv_launches"] == 0 and serving["crops_per_s"] is None
     assert serving["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}
-    ref = chip_smoke.phase_reference(dev, npoint=NPT, backbone="hrnet_w18_small")
+    ref = chip_smoke.phase_reference(dev, npoint=NPT, backbone="hrnet_w18_small",
+                                     serve_batch=2, serve_warm=1, serve_iters=1)
     assert ref["f32"]["x_id"] == 1.0
     assert ref["f32"]["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}
+    assert ref["f32_serving"]["crops_per_s"] is None           # no rate off the card
+    assert ref["f32_serving"]["fma_share_of_batch"] is None
+    assert ref["f32_serving"]["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}
     oracle = chip_smoke.phase_oracle(dev, batch=8, npoint=64)
     assert oracle["max_rot_err_deg"] < 3.0
     fold = chip_smoke.phase_fold_cost(dev, iters=2)

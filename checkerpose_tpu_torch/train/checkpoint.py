@@ -11,7 +11,12 @@ temporary name and renamed, and `wait()` has nothing to wait for.
 
 Under data parallelism (`mesh`, parallel/mesh.py) every rank holds the same
 state: rank 0 writes and the others wait at a barrier until the files are in
-place; every rank restores the same files after a barrier.
+place; every rank restores the same files after a barrier. What a rank's
+caller may branch on (the latest step, the step to restore, the restored
+best score) is read by rank 0 and sent to the others, so that no rank
+decides from its own view of the directory (train/loop.py's rule).
+`best_floor` reads the record on the rank that calls it: the loop calls it
+on rank 0 and sends the floor with the gate.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from typing import List, Optional
 
 import torch
 
-from checkerpose_tpu_torch.parallel.mesh import Mesh, barrier
+from checkerpose_tpu_torch.parallel.mesh import Mesh, barrier, from_lead
 from checkerpose_tpu_torch.train.state import TrainState
 
 _FILE = "state.pt"
@@ -65,6 +70,11 @@ class CheckpointManager:
 
     def _writes(self) -> bool:
         return self.mesh is None or self.mesh.lead
+
+    def _from_lead(self, read):
+        """read() on rank 0, its value on every rank (a collective under a
+        mesh: every rank calls it)."""
+        return from_lead(read() if self._writes() else None, self.mesh)
 
     def save(self, state: TrainState):
         if self._writes():
@@ -114,27 +124,37 @@ class CheckpointManager:
         """Saves are synchronous; kept so callers read like the JAX package's."""
 
     def latest_step(self) -> Optional[int]:
-        steps = _steps(self.dir)
-        return steps[-1] if steps else None
+        """The newest rolling step, as rank 0 finds it (every rank calls it)."""
+        def read():
+            steps = _steps(self.dir)
+            return steps[-1] if steps else None
+        return self._from_lead(read)
 
     def restore_raw(self, step: Optional[int] = None, best: bool = False) -> dict:
         """The payload as saved, on the CPU, for cross-model weight grafts."""
         barrier(self.mesh)
         root = self.best_dir if best else self.dir
-        if step is None:
-            steps = _steps(root)
-            if not steps:
-                raise FileNotFoundError(f"no checkpoint found in {root}")
-            step = steps[-1]
-        path = os.path.join(root, str(int(step)), _FILE)
-        if not os.path.isfile(path):
-            raise FileNotFoundError(f"no checkpoint at {path}")
+
+        def resolve():
+            """(the path to load, or None and why not) on rank 0."""
+            if step is None:
+                steps = _steps(root)
+                if not steps:
+                    return None, f"no checkpoint found in {root}"
+                path = os.path.join(root, str(steps[-1]), _FILE)
+            else:
+                path = os.path.join(root, str(int(step)), _FILE)
+            return (path, None) if os.path.isfile(path) else (None, f"no checkpoint at {path}")
+
+        path, missing = self._from_lead(resolve)
+        if missing:
+            raise FileNotFoundError(missing)
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def _restored(self, state: TrainState, raw: dict, best: bool) -> TrainState:
         best_score = float(raw["best_score"])
         if not best:
-            best_score = max(best_score, self._best_score_floor())
+            best_score = max(best_score, self._from_lead(self._best_score_floor))
         return dataclasses.replace(state, step=int(raw["step"]), best_score=best_score)
 
     def restore(self, state: TrainState, step: Optional[int] = None,

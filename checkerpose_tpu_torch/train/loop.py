@@ -10,11 +10,20 @@ rank runs this loop over its own loader, which yields its rows of each
 global batch. The module is replicated from rank 0, the steps sum the
 gradients over the ranks (train/steps.py), rank 0 alone writes checkpoints,
 metrics and log lines, and rank 0 alone runs `eval_fn` (as JAX's harness
-evaluates unsharded) while the others wait for its gate score. Not carried
-over: the periodic deletion of input buffers under `sync_freq`, which worked
-around the runtime of the JAX package's remote TPU client. PyTorch's caching
-allocator frees a batch when its last reference goes, so the loop only
-bounds how far the host may run ahead of the card.
+evaluates unsharded) while the others wait for its gate score. The loop
+starts from rank 0's module and step. Not carried over: the periodic
+deletion of input buffers under `sync_freq`, which worked around the runtime
+of the JAX package's remote TPU client. PyTorch's caching allocator frees a
+batch when its last reference goes, so the loop only bounds how far the host
+may run ahead of the card.
+
+The rule that keeps the ranks in step: a branch that contains a collective
+(a step's all-reduces, `ckpt.save_best`'s barrier, `from_lead`) is decided
+only from values that every rank received from the same collective, never
+from a rank's own state (its files, its clock, its eval). So rank 0 resolves
+the gate's floor from best_score.json and sends it with the gate, and a
+failed eval on rank 0 is sent too, so that every rank raises rather than
+waits in a collective that rank 0 never joins.
 """
 from __future__ import annotations
 
@@ -69,6 +78,9 @@ def run_training(*, state: TrainState, step_fns, loader: Iterable, total_iterati
     lead = mesh is None or mesh.lead
     if mesh is not None:
         replicate_module(module, mesh)
+        # and rank 0's step, which every branch below counts from: a CLI may
+        # have reset it from files a rank reads itself (a backbone graft)
+        state.step = from_lead(state.step, mesh)
         state.mesh = mesh
     device = next(module.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -117,19 +129,32 @@ def run_training(*, state: TrainState, step_fns, loader: Iterable, total_iterati
             state.best_score = floor_or_best()
             ckpt.save(state)                 # before the eval (see save_freq)
         if step_no % test_freq == 0 or at_end:
-            gate = gate_metric = None
+            gate = gate_metric = floor = failed = None
             if lead:
                 module.eval()
                 try:
                     ev = eval_fn(module)
+                except Exception as e:
+                    if mesh is None or mesh.group is None:
+                        raise
+                    failed = e
                 finally:
                     module.train()
-                writer.add_scalar("TESTDATA_ACC/ACC_test", ev["test_acc"], step_no)
-                gate = float(ev.get("gate_score", ev["test_acc"]))
-                gate_metric = str(ev.get("gate_metric", "test_acc"))
-            gate, gate_metric = from_lead((gate, gate_metric), mesh)
+                if failed is None:
+                    writer.add_scalar("TESTDATA_ACC/ACC_test", ev["test_acc"], step_no)
+                    gate = float(ev.get("gate_score", ev["test_acc"]))
+                    gate_metric = str(ev.get("gate_metric", "test_acc"))
+                    if best is None:
+                        floor = ckpt.best_floor(gate_metric)
+            # the gate, its floor and a failure travel together (the module docstring)
+            gate, gate_metric, floor, why = from_lead(
+                (gate, gate_metric, floor, None if failed is None else repr(failed)), mesh)
+            if why is not None:
+                if failed is not None:
+                    raise failed
+                raise RuntimeError(f"rank 0's eval at step {step_no} failed: {why}")
             if best is None:
-                best = ckpt.best_floor(gate_metric)
+                best = floor
             if lead:
                 print(f"eval @ {step_no}: " + " ".join(
                     f"{k}={v:.4f}" for k, v in ev.items() if isinstance(v, (int, float)))

@@ -78,7 +78,7 @@ def test_chip_smoke_trained_phase_rehearsed_on_cpu(tmp_path):
     serialises. The learning gate (a) needs the card's hundreds of steps."""
     root = diag_overfit.make_fixture(str(tmp_path), 4)
     res = chip_smoke.phase_trained(torch.device("cpu"), backbone="hrnet_w18_small", n=4,
-                                   steps_n=2, log_every=1, train_s=0.0, train_batch=2,
+                                   steps_n=2, log_every=1, pose_steps=1, train_batch=2,
                                    data_root=root, trained_gates=False)
     recipe = res["recipe"]
     assert [c["step"] for c in recipe["curve"]] == [1, 2] and recipe["gate"]["gate_step"] == 2
@@ -119,10 +119,43 @@ def _crops(*counts):
     (_crops(59, 59, 59), _crops(58, 61, 61), _crops(64, 64, 64), False),
     # bf16 over f32 as far as the plain bf16 path is
     (_crops(64, 64, 63), _crops(64, 63, 64), _crops(60, 61, 60), True),
+    # the absolute bars: both bf16 paths 6 crops under f32 (the bar) ...
+    (_crops(58, 58, 58), _crops(58, 57, 58), _crops(64, 64, 64), True),
+    # ... and 7 under it, "tc" within the relative bars all the same
+    (_crops(57, 57, 57), _crops(57, 56, 57), _crops(64, 64, 64), False),
+    # both bf16 paths 3 crops over f32 (the bar is 2)
+    (_crops(64, 64, 64), _crops(64, 64, 64), _crops(61, 60, 61), False),
 ])
 def test_adx10_gate_of_the_trained_phase(tc, plain, f32, held):
     """Gate (c)'s adx10 check on crop counts of 64: "tc" within one crop of
     the plain bf16 path's range over the solver seeds, and within one crop of
-    the f32 path's range beyond the plain bf16 path's own distance from it."""
+    the f32 path's range beyond the plain bf16 path's own distance from it;
+    that distance at most 6 crops below the f32 path's range and 2 above
+    (the absolute bars)."""
     why = chip_smoke._adx10_gate(tc, plain, f32, 64)
     assert (why is None) == held, why
+
+
+@pytest.mark.parametrize("share, held", [(0.05, True), (0.07, True), (0.09, False)])
+def test_precision_gate_bars_bf16_itself_on_the_refine_bits(share, held):
+    """Gate (c)'s bits check: where the plain bf16 forward leaves f32 in more
+    than PLAIN_REFINE_SHARE_MAX of a refine head's bits, the head fails the
+    absolute bar even though "tc" flips no more than the plain forward does
+    (the relative bar)."""
+    g = torch.Generator().manual_seed(0)
+    B, N, S = 4, 50, 3                                # 600 bits a refine head
+    f32 = {"roi_logit": torch.randn(B, N, 1, generator=g),
+           "seg_logits": torch.randn(B, 8, 8, 2, generator=g),
+           "x_logits": torch.randn(B, N, 3 + S, generator=g) + 3.0,
+           "y_logits": torch.randn(B, N, 3 + S, generator=g) + 3.0}
+    plain = {k: v.clone() for k, v in f32.items()}
+    flips = round(share * B * N * S)
+    for a in "xy":
+        refine = plain[f"{a}_logits"][..., 3:].reshape(-1)
+        refine[:flips] = -refine[:flips]
+        plain[f"{a}_logits"][..., 3:] = refine.view(B, N, S)
+    res = chip_smoke._precision_gate(plain, plain, f32)
+    assert res["x_refine"]["plain_share"] == pytest.approx(flips / (B * N * S))
+    assert res["roi"]["plain_share_bar"] is None and res["roi"]["plain_ok"] is None
+    assert all(r["ok"] for r in res.values())           # "tc" flips what plain flips
+    assert [res[f"{a}_refine"]["plain_ok"] for a in "xy"] == [held] * 2

@@ -11,12 +11,14 @@ Added: BatchNorm's global statistics, every loss at W=2, the PoseNet step with
 augmentation and teacher forcing on a batch whose shards hold different
 in-RoI counts (and DDP-style per-rank normalizers, which must miss the bar),
 the W=2 step against JAX's step, `run_training` at W=2 and the pretrain CLI
-under torchrun's environment at W=2; and a CPU rehearsal of chip_smoke.py's
-parallel phase.
+under torchrun's environment at W=2; `run_training` at W=2 where rank 1 reads
+the best-score record only after rank 0 wrote it (the best-checkpoint race),
+an eval that fails on rank 0, a hang's stacks; and a CPU rehearsal of
+chip_smoke.py's parallel phase.
 
-The ranks run in one 4-process group for the whole module (the 2-rank cases
-on its subgroup {0, 1}, tests/torch_dp_ranks.py) and one 2-process group for
-the CLI; each has a 60 s process-group timeout and a 60 s join."""
+The library cases run in one 4-process group for the whole module (the
+2-rank cases on its subgroup {0, 1}, tests/torch_dp_ranks.py), the others in
+2-process groups of their own; every group timeout and join is 60 s at most."""
 import json
 import os
 
@@ -345,6 +347,55 @@ def test_run_training_at_w2(world4):
     assert ckpt.latest_step() == 4 and sorted(os.listdir(ckpt.best_dir)) == ["4"]
     logs = [(world4["work"] / f"rank{r}.log").read_text() for r in range(2)]
     assert "step 3/3" in logs[0] and "eval @ 4" in logs[0] and "step " not in logs[1]
+    assert [r["best_saves"] for r in res] == [[[2, 3], [4]]] * 2   # both ranks at each
+
+
+@pytest.mark.parametrize("racing", [("first", "resumed"), ("resumed",)],
+                         ids=["both_runs", "resumed_run_first_eval"])
+def test_best_checkpoint_when_rank1_reads_the_record_late(tmp_path, racing):
+    """run_training on 2 ranks (3 steps, then restored and resumed to 4)
+    where rank 1 would read best_score.json only after rank 0 has written
+    its new best (tests/torch_dp_ranks.py::LateFloorManager), in both runs
+    or in the resumed run's first eval alone. Every rank takes rank 0's
+    floor and meets it at every save_best. A loop whose ranks read the
+    floor themselves lets rank 1 find the gate equal to the floor, skip
+    save_best's barrier and wait in the next step's all-reduce: the 20 s
+    group timeout ends that within the 40 s join."""
+    res = dp.run("best_floor_race", 2, tmp_path, racing, timeout=40, group_timeout=20)
+    for r in res:
+        assert (r["first_step"], r["restored_step"], r["resumed_step"]) == (3, 3, 4)
+        assert r["first_spread"] == r["resumed_spread"] == 0.0 and r["restored_equal"]
+        assert r["best_saves"] == [[2, 3], [4]] and r["best_score"] == 3.0
+    assert [r["evals"] for r in res] == [3, 0]
+    with open(tmp_path / "ckpt" / "best_score.json") as f:
+        assert json.load(f) == {"step": 4, "best_score": 3.0, "metric": "test_acc"}
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    assert ckpt.latest_step() == 4 and os.listdir(ckpt.best_dir) == ["4"]
+    # the resumed run's first eval: its floor is the first run's best, from the record
+    assert "gate[test_acc]=3.0000 (best 2.0000)" in (tmp_path / "rank0.log").read_text()
+
+
+def test_a_failed_eval_on_rank0_ends_every_rank(tmp_path):
+    """An eval that raises on rank 0 ends run_training on both ranks: rank
+    0 raises its own error, rank 1 one that names it, and neither waits in a
+    collective the other never joins."""
+    res = dp.run("eval_failure", 2, tmp_path, timeout=40, group_timeout=20)
+    assert res == ["ValueError: no eval data",
+                   "RuntimeError: rank 0's eval at step 2 failed: ValueError('no eval data')"]
+
+
+def test_a_hang_reports_every_rank_s_stack(tmp_path):
+    """Ranks still running at the join deadline are killed, and the error
+    holds the stacks each wrote shortly before it: rank 0 asleep in the
+    target, rank 1 in the barrier."""
+    with pytest.raises(RuntimeError) as err:
+        dp.run("stall", 2, tmp_path, timeout=12)
+    msg = str(err.value)
+    assert "ranks [0, 1] still running after 12 s" in msg
+    for r in range(2):
+        assert f"--- rank {r}, stacks" in msg
+    stacks = [(tmp_path / f"rank{r}.stack").read_text() for r in range(2)]
+    assert all("in stall" in s for s in stacks) and "in barrier" in stacks[1], stacks
 
 
 def test_pretrain_cli_under_torchrun_at_w2(tmp_path):
@@ -381,7 +432,8 @@ def test_chip_smoke_parallel_phase_rehearsed_on_cpu(tmp_path):
         torch.device("cpu"), root=tmp_path, batch=4, iters=2, test_freq=1, log_freq=1,
         cfg_overrides=small, step_batch=4, native_test=8, native_scenes=1, native_vertices=64,
         step_cfg={**{k: v for k, v in dp.POSE_CFG.items() if k != "dtype"}, "knn_k": KNN},
-        timeout=240)
+        timeout=240, dp2_iters=(2, 3), dp2_test_freq=1, dp2_log_freq=1, dp2_timeout=60,
+        dp2_group_timeout=30)
     train = res["dp_train"]
     assert (train["backend"], train["world"], train["eval_batches"]) == ("gloo", 1, [1, 1])
     assert train["launches"] == {"tc": 0, "fma": 0}                    # no card, no launch
@@ -399,6 +451,15 @@ def test_chip_smoke_parallel_phase_rehearsed_on_cpu(tmp_path):
     for run in native["runs"].values():
         assert run["launches"] == {"tc": 0, "fma": 0} and run["images_per_s"] is None
         assert run["loader_wait_ms_per_batch"] is None and run["cli_wall_s"] is None
+    dp2 = res["dp2_train"]
+    assert [e["step"] for e in dp2["evals"]] == [1, 2, 3] and dp2["eval_batches"] == [1, 1, 1]
+    assert dp2["best_steps_by_run"][0][:1] == [1] and dp2["checkpoints"] == [1, 2, 3]
+    assert dp2["best_score_json"]["metric"] == chip_smoke.GATE_METRIC
+    assert dp2["metrics_lines"] == 3 + 3                       # a line a step and an eval
+    assert dp2["launches"] == dp2["launches_rank1"] == {"tc": 0, "fma": 0}
+    for key in ("ms_per_iter", "eval_s", "peak_mem_gib_by_rank", "ranks_s", "split_s"):
+        assert dp2[key] is None
     assert sorted(chip_smoke.parallel_launches(res)) == [
-        "parallel_dp_train", "parallel_native_loader_test", "parallel_python_loader_test"]
+        "parallel_dp2_train_rank0", "parallel_dp2_train_rank1", "parallel_dp_train",
+        "parallel_native_loader_test", "parallel_python_loader_test"]
     json.dumps(res)                              # the phase's JSON line serialises

@@ -7,8 +7,12 @@ workdir, *args)`, a function of this module, in every one. A rank saves what
 its target returns to `workdir/rank<r>.pt` and its printed lines to
 `workdir/rank<r>.log`; `run` waits at most `timeout` seconds for them all,
 kills any rank still alive, and returns the values by rank, or raises with the
-tracebacks of the ranks that failed. Each rank's process group has a 60 s
-timeout, so a collective that one rank never joins fails rather than hangs.
+tracebacks of the ranks that failed. Each rank joins its gloo process group
+before the target runs, with `group_timeout` (60 s at most, as `timeout`),
+so a collective that one rank never joins fails rather than hangs. A rank
+still running STACK_MARGIN_S before the join deadline writes every thread's
+stack to `workdir/rank<r>.stack` (faulthandler), and `run` puts those stacks
+beside the tracebacks: a hang says where each rank waited.
 
 The module imports neither jax nor checkerpose_tpu, so a rank starts in
 seconds; the tests compute their one-process references with the same
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import faulthandler
 import multiprocessing as mp
 import os
 import socket
@@ -34,9 +39,14 @@ from checkerpose_tpu_torch.models.posenet import PoseNet
 from checkerpose_tpu_torch.parallel.mesh import (Mesh, all_sum_, make_global_batch, make_mesh,
                                                  replicate_module, shard_batch)
 from checkerpose_tpu_torch.train import steps
+from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
 from checkerpose_tpu_torch.train.state import TrainState
 
 GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+# the longest group timeout and join a test may give its ranks
+MAX_TIMEOUT_S = 60.0
+# how long before the join deadline a rank still running dumps its stacks
+STACK_MARGIN_S = 5.0
 
 # hrnet_w18_small, 16 keypoints, K=5, one graph module, f32
 POSE_CFG = dict(npoint=16, res_log2=6, backbone_name="hrnet_w18_small", num_graph_module=1,
@@ -62,12 +72,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank: int, world: int, port: int, target: str, workdir: str, args):
+def _entry(rank: int, world: int, port: int, target: str, workdir: str, args,
+           deadline: float, group_timeout: float):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     torch.set_num_threads(1)
     out = Path(workdir)
+    stack = open(out / f"rank{rank}.stack", "w")
+    # `deadline` is on the wall clock, which the spawned processes share
+    faulthandler.dump_traceback_later(max(1.0, deadline - STACK_MARGIN_S - time.time()),
+                                      file=stack)
     try:
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=group_timeout))
         with open(out / f"rank{rank}.log", "w") as log, contextlib.redirect_stdout(log):
             result = globals()[target](rank, world, out, *args)
         torch.save(result, out / f"rank{rank}.pt")
@@ -75,17 +92,25 @@ def _entry(rank: int, world: int, port: int, target: str, workdir: str, args):
         (out / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
     finally:
+        faulthandler.cancel_dump_traceback_later()
+        stack.close()
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def run(target: str, world: int, workdir, *args, timeout: float = 60.0):
+def run(target: str, world: int, workdir, *args, timeout: float = MAX_TIMEOUT_S,
+        group_timeout: float = MAX_TIMEOUT_S):
     """The values `target` returned on each rank (see the module docstring)."""
+    if not 0 < group_timeout <= MAX_TIMEOUT_S or not 0 < timeout <= MAX_TIMEOUT_S:
+        raise ValueError(f"timeouts {group_timeout} s (group), {timeout} s (join): "
+                         f"each at most {MAX_TIMEOUT_S} s")
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     ctx = mp.get_context("spawn")
     port = free_port()
-    procs = [ctx.Process(target=_entry, args=(r, world, port, target, str(workdir), args),
+    wall_deadline = time.time() + timeout
+    procs = [ctx.Process(target=_entry, args=(r, world, port, target, str(workdir), args,
+                                              wall_deadline, group_timeout),
                          daemon=True) for r in range(world)]
     for p in procs:
         p.start()
@@ -99,11 +124,19 @@ def run(target: str, world: int, workdir, *args, timeout: float = 60.0):
             p.join(5)
     errors = {r: (workdir / f"rank{r}.err").read_text()
               for r in range(world) if (workdir / f"rank{r}.err").exists()}
+    stacks = {r: text for r in range(world)
+              if (text := _read(workdir / f"rank{r}.stack")).strip()}
     if alive or errors or any(p.exitcode != 0 for p in procs):
         raise RuntimeError(f"{target}: ranks {alive} still running after {timeout} s, exit "
                            f"codes {[p.exitcode for p in procs]}\n" + "\n".join(
-                               f"--- rank {r} ---\n{e}" for r, e in errors.items()))
+                               [f"--- rank {r} ---\n{e}" for r, e in errors.items()]
+                               + [f"--- rank {r}, stacks {STACK_MARGIN_S:g} s before the "
+                                  f"join deadline ---\n{t}" for r, t in stacks.items()]))
     return [torch.load(workdir / f"rank{r}.pt", weights_only=True) for r in range(world)]
+
+
+def _read(path: Path) -> str:
+    return path.read_text() if path.exists() else ""
 
 
 # --- what the tests hold a W-rank run against --------------------------------------------
@@ -334,48 +367,128 @@ def _tiny_step(state: TrainState, batch, generator):
     return steps._reported({"loss": loss}, state)
 
 
+def _tiny_loader(mesh):
+    """This rank's rows of one fixed batch of 4, endlessly."""
+    g = torch.Generator().manual_seed(1)
+    local = shard_batch({"x": torch.randn(4, 3, generator=g),
+                         "y": torch.randn(4, 4, generator=g)}, mesh)
+    return iter(lambda: dict(local), None)
+
+
 def _tiny_state():
     torch.manual_seed(0)
     net = _Tiny().train()
     return TrainState(module=net, optimizer=torch.optim.SGD(net.parameters(), lr=0.1))
 
 
-def _run_training(mesh, workdir):
+class _CountingManager(CheckpointManager):
+    """A CheckpointManager that notes the step of every `save_best` call."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.best_saves = []
+
+    def save_best(self, state, metric="test_acc"):
+        self.best_saves.append(int(state.step))
+        super().save_best(state, metric)
+
+
+# how long LateFloorManager's best_floor waits for rank 0's record at most
+RACE_WAIT_S = 10.0
+
+
+class LateFloorManager(_CountingManager):
+    """A manager whose `best_floor`, on a rank other than 0, first waits (at
+    most RACE_WAIT_S) until rank 0 has written a best_score.json other than
+    the one it found when it was built: the order in which a rank that reads
+    the record itself sees rank 0's new best and skips `save_best`'s barrier.
+    Rank 0 cannot write before the snapshot is taken, since run_training's
+    replicate_module needs every rank after the constructor's barrier."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self._seen = self._record()
+
+    def best_floor(self, metric: str) -> float:
+        if not self._writes():
+            end = time.monotonic() + RACE_WAIT_S
+            while self._record() == self._seen and time.monotonic() < end:
+                time.sleep(0.02)
+        return super().best_floor(metric)
+
+
+def _run_training(mesh, workdir, managers=(_CountingManager, _CountingManager)):
     """run_training over 3 steps with rank 0's writer and checkpoints, then
-    a fresh state restored on every rank and run on to step 4."""
-    from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
+    a fresh state restored on every rank and run on to step 4; `managers`:
+    the CheckpointManager class of each of the two runs."""
     from checkerpose_tpu_torch.train.loop import run_training
     from checkerpose_tpu_torch.utils.logging import MetricWriter
-    g = torch.Generator().manual_seed(1)
-    local = shard_batch({"x": torch.randn(4, 3, generator=g),
-                         "y": torch.randn(4, 4, generator=g)}, mesh)
     evals = []
 
     def eval_fn(module):
         evals.append(len(evals))
         return {"test_acc": float(len(evals))}
 
-    def go(state, total):
+    best_saves = []
+
+    def go(state, total, manager):
         writer = MetricWriter(str(workdir / "tb"), use_tensorboard=False) if mesh.lead else None
-        ckpt = CheckpointManager(str(workdir / "ckpt"), mesh=mesh)
+        ckpt = manager(str(workdir / "ckpt"), mesh=mesh)
         state = run_training(state=state, step_fns={None: _tiny_step},
-                             loader=iter(lambda: dict(local), None), total_iteration=total,
+                             loader=_tiny_loader(mesh), total_iteration=total,
                              eval_fn=eval_fn, ckpt=ckpt, writer=writer, log_freq=1,
                              test_freq=2, mesh=mesh)
         if writer is not None:
             writer.close()
+        best_saves.append(ckpt.best_saves)
         return state
 
-    st = go(_tiny_state(), 3)
+    st = go(_tiny_state(), 3, managers[0])
     first = {"step": st.step, "spread": _spread(st, mesh), "state": state_tensors(st)}
     restored = CheckpointManager(str(workdir / "ckpt"), mesh=mesh).restore(_tiny_state())
     restored_step = restored.step
     same = all(torch.equal(v, first["state"][k])
                for k, v in restored.module.state_dict().items())
-    st = go(restored, 4)
+    st = go(restored, 4, managers[1])
     return {"first_step": first["step"], "first_spread": first["spread"],
             "restored_step": restored_step, "restored_equal": same, "resumed_step": st.step,
-            "resumed_spread": _spread(st, mesh), "evals": len(evals)}
+            "resumed_spread": _spread(st, mesh), "evals": len(evals), "best_saves": best_saves,
+            "best_score": float(st.best_score)}
+
+
+def best_floor_race(rank, world, workdir, racing):
+    """`_run_training` on the world's group with LateFloorManager in the
+    runs that `racing` names ("first", "resumed"), a manager that reads the
+    record when the loop asks in the others: every rank must meet rank 0 at
+    each `save_best`."""
+    mesh = make_mesh("cpu")
+    return _run_training(mesh, workdir, tuple(
+        LateFloorManager if run in racing else _CountingManager for run in ("first", "resumed")))
+
+
+def eval_failure(rank, world, workdir):
+    """run_training whose eval raises on rank 0: what each rank raised."""
+    from checkerpose_tpu_torch.train.loop import run_training
+    mesh = make_mesh("cpu")
+
+    def eval_fn(module):
+        raise ValueError("no eval data")
+
+    try:
+        run_training(state=_tiny_state(), step_fns={None: _tiny_step}, loader=_tiny_loader(mesh),
+                     total_iteration=3, eval_fn=eval_fn,
+                     ckpt=CheckpointManager(str(workdir / "ckpt"), mesh=mesh), writer=None,
+                     log_freq=10, test_freq=2, mesh=mesh)
+    except Exception as e:
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def stall(rank, world, workdir):
+    """A hang: rank 1 waits at a barrier that rank 0, asleep, never joins."""
+    if rank == 1:
+        dist.barrier()
+    time.sleep(MAX_TIMEOUT_S)
 
 
 def cli_pretrain(rank, world, workdir, cfg):

@@ -1,0 +1,2 @@
+"""Share of the traced stretch of the open loop in which no device operation ran."""
+from posebench.metrics._common import idle_share as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""Peak device memory of the training run (GiB)."""
+from posebench.metrics._common import peak_gib as read  # noqa: F401

@@ -33,6 +33,7 @@ from checkerpose_tpu_torch.ops import codes as _codes
 from checkerpose_tpu_torch.ops import geometry as _geom
 from checkerpose_tpu_torch.solver.ransac import solve_poses_batched
 from checkerpose_tpu_torch.train import steps
+from checkerpose_tpu_torch.utils.logging import span
 
 FILTER_MODES = ("none", "full", "visib")
 
@@ -176,7 +177,10 @@ def evaluate_pipeline(net, knn_idx, loader, p3d_xyz, diameter: float,
     end and each batch's host-clock seconds are appended to a list under
     "loader" (waiting for the batch), "forward_decode", "solver_metrics"
     (solve, errors, seg and bit metrics, the copy to the host) and
-    "aggregate" (the host's bookkeeping).
+    "aggregate" (the host's bookkeeping). Under torch.profiler the same
+    phases are the spans eval.forward_decode, eval.solver_metrics and
+    eval.aggregate inside eval.batch, beside eval.loader
+    (utils/logging.py); they synchronise nothing.
     """
     dev = _module_device(net)
     knn = _graph(knn_idx, dev)
@@ -201,6 +205,27 @@ def evaluate_pipeline(net, knn_idx, loader, p3d_xyz, diameter: float,
         spans.setdefault(name, []).append(t1 - t0)
         return t1
 
+    def decode(out, on):
+        """Correspondences of the batch under every filter mode."""
+        with span("decode", dev):
+            if decode_mode == "soft":
+                dec_x, dec_y = soft_ids(out["x_logits"], out["y_logits"])
+            elif decode_mode == "adaptive":
+                dec_x, dec_y = adaptive_ids(out["x_logits"], out["y_logits"], decode_conf_tau)
+            else:
+                dec_x, dec_y = out["x_id"], out["y_id"]
+            fx, fy = _filter_ids(out, res, filter_judge_bits)
+            p2d_all, valid_all = [], []
+            for mode in filter_modes:
+                seg = {"none": None, "full": out["seg_full"], "visib": out["seg_visib"]}[mode]
+                p2d, valid = ids_to_correspondences(
+                    dec_x, dec_y, out["roi_mask"], on["bbox"], crop_size_gt=res,
+                    seg_mask=seg, check_seg=(mode != "none"),
+                    discard_bd_pixel=discard_bd_pixel, filter_x_id=fx, filter_y_id=fy)
+                p2d_all.append(p2d)
+                valid_all.append(valid)
+            return p2d_all, valid_all
+
     per_mode = {m: {"adx": [], "re": [], "te": [], "nvalid": []} for m in filter_modes}
     poses: List[Dict] = []
     seg_acc, seg_iou, bit_errs = [], [], []
@@ -209,80 +234,71 @@ def evaluate_pipeline(net, knn_idx, loader, p3d_xyz, diameter: float,
     it = iter(loader)
     t = time.perf_counter()
     while True:
-        batch = next(it, None)
+        with span("eval.loader", dev):
+            batch = next(it, None)
         if batch is None:
             break
         t = mark("loader", t)
-        n_real = int(batch.get("n_real", len(batch["image"])))
-        on = _on(batch, ("image", "p3d_normed", "obj_idx", "R", "t", "bbox", "cam_K",
-                         "proj_xy", "mask_visib"), dev)
-        out = fwd(on)
-        sample_valid = np.asarray(batch["valid"]) > 0.5
-        B = on["R"].shape[0]
+        with span("eval.batch", dev):
+            with span("eval.forward_decode", dev):
+                n_real = int(batch.get("n_real", len(batch["image"])))
+                on = _on(batch, ("image", "p3d_normed", "obj_idx", "R", "t", "bbox",
+                                 "cam_K", "proj_xy", "mask_visib"), dev)
+                out = fwd(on)
+                sample_valid = np.asarray(batch["valid"]) > 0.5
+                B = on["R"].shape[0]
+                p2d_all, valid_all = decode(out, on)
+            t = mark("forward_decode", t)
 
-        if decode_mode == "soft":
-            dec_x, dec_y = soft_ids(out["x_logits"], out["y_logits"])
-        elif decode_mode == "adaptive":
-            dec_x, dec_y = adaptive_ids(out["x_logits"], out["y_logits"], decode_conf_tau)
-        else:
-            dec_x, dec_y = out["x_id"], out["y_id"]
-        fx, fy = _filter_ids(out, res, filter_judge_bits)
-        p2d_all, valid_all = [], []
-        for mode in filter_modes:
-            seg = {"none": None, "full": out["seg_full"], "visib": out["seg_visib"]}[mode]
-            p2d, valid = ids_to_correspondences(
-                dec_x, dec_y, out["roi_mask"], on["bbox"], crop_size_gt=res, seg_mask=seg,
-                check_seg=(mode != "none"), discard_bd_pixel=discard_bd_pixel,
-                filter_x_id=fx, filter_y_id=fy)
-            p2d_all.append(p2d)
-            valid_all.append(valid)
-        t = mark("forward_decode", t)
+            with span("eval.solver_metrics", dev):
+                sol = solve_poses_batched(p3d, torch.cat(p2d_all), torch.cat(valid_all),
+                                          on["cam_K"].repeat(nm, 1, 1), gen, device=dev,
+                                          **solver_kw)
+                errs = M.batched_pose_errors(sol["R"], sol["t"], on["R"].repeat(nm, 1, 1),
+                                             on["t"].reshape(-1, 3).repeat(nm, 1), verts,
+                                             use_adi=use_adi, sym_rots=sym_rots)
+                found = {"R": sol["R"], "t": sol["t"], "success": sol["success"],
+                         "adx": errs["adx"], "re": errs["re"], "te": errs["te"],
+                         "nvalid": torch.stack([v.sum(1) for v in valid_all])}
+                if "proj_xy" in on:
+                    found["bit_err"] = _bit_errors(out["x_id"], out["y_id"], out["roi_mask"],
+                                                   on["proj_xy"], on["bbox"], res)
+                # seg metrics against the GT visib mask sampled at the stage resolution
+                gt_mask = on["mask_visib"]
+                h = out["seg_visib"].shape[1]
+                idx = torch.div(torch.arange(h, device=dev) * gt_mask.shape[1], h,
+                                rounding_mode="floor")
+                found["seg_err"], found["seg_iou"] = M.batched_mask_metrics(
+                    out["seg_visib"] > 0.5, gt_mask[:, idx][:, :, idx])
+                host = _to_host(found)
+            t = mark("solver_metrics", t)
 
-        sol = solve_poses_batched(p3d, torch.cat(p2d_all), torch.cat(valid_all),
-                                  on["cam_K"].repeat(nm, 1, 1), gen, device=dev, **solver_kw)
-        errs = M.batched_pose_errors(sol["R"], sol["t"], on["R"].repeat(nm, 1, 1),
-                                     on["t"].reshape(-1, 3).repeat(nm, 1), verts,
-                                     use_adi=use_adi, sym_rots=sym_rots)
-        found = {"R": sol["R"], "t": sol["t"], "success": sol["success"],
-                 "adx": errs["adx"], "re": errs["re"], "te": errs["te"],
-                 "nvalid": torch.stack([v.sum(1) for v in valid_all])}
-        if "proj_xy" in on:
-            found["bit_err"] = _bit_errors(out["x_id"], out["y_id"], out["roi_mask"],
-                                           on["proj_xy"], on["bbox"], res)
-        # seg metrics against the GT visib mask sampled at the stage resolution
-        gt_mask = on["mask_visib"]
-        h = out["seg_visib"].shape[1]
-        idx = torch.div(torch.arange(h, device=dev) * gt_mask.shape[1], h,
-                        rounding_mode="floor")
-        found["seg_err"], found["seg_iou"] = M.batched_mask_metrics(
-            out["seg_visib"] > 0.5, gt_mask[:, idx][:, :, idx])
-        host = _to_host(found)
-        t = mark("solver_metrics", t)
-
-        for mi, mode in enumerate(filter_modes):
-            sl = slice(mi * B, (mi + 1) * B)
-            ok = (host["success"][sl] > 0.5) & sample_valid
-            acc = per_mode[mode]
-            acc["adx"].append(np.where(ok, host["adx"][sl], np.inf)[:n_real])
-            acc["re"].append(np.where(ok, host["re"][sl], 180.0)[:n_real])
-            acc["te"].append(np.where(ok, host["te"][sl], np.inf)[:n_real])
-            acc["nvalid"].append(host["nvalid"][mi][:n_real])
-        real_valid = sample_valid[:n_real]
-        if "bit_err" in host:
-            bit_errs.append(host["bit_err"][:n_real][real_valid])
-        seg_acc.extend((1.0 - host["seg_err"][:n_real][real_valid]).tolist())
-        seg_iou.extend(host["seg_iou"][:n_real][real_valid].tolist())
-        mi = filter_modes.index(eff_main)
-        for b in range(n_real):
-            row = mi * B + b
-            poses.append({
-                "scene_id": int(batch["scene_id"][b]),
-                "im_id": int(batch["im_id"][b]),
-                "R": host["R"][row], "t": host["t"][row],
-                "score": 1.0 if (sample_valid[b] and host["success"][row] > 0.5) else -1.0,
-            })
-        n_images += n_real
-        t = mark("aggregate", t)
+            with span("eval.aggregate", dev):
+                for mi, mode in enumerate(filter_modes):
+                    sl = slice(mi * B, (mi + 1) * B)
+                    ok = (host["success"][sl] > 0.5) & sample_valid
+                    acc = per_mode[mode]
+                    acc["adx"].append(np.where(ok, host["adx"][sl], np.inf)[:n_real])
+                    acc["re"].append(np.where(ok, host["re"][sl], 180.0)[:n_real])
+                    acc["te"].append(np.where(ok, host["te"][sl], np.inf)[:n_real])
+                    acc["nvalid"].append(host["nvalid"][mi][:n_real])
+                real_valid = sample_valid[:n_real]
+                if "bit_err" in host:
+                    bit_errs.append(host["bit_err"][:n_real][real_valid])
+                seg_acc.extend((1.0 - host["seg_err"][:n_real][real_valid]).tolist())
+                seg_iou.extend(host["seg_iou"][:n_real][real_valid].tolist())
+                mi = filter_modes.index(eff_main)
+                for b in range(n_real):
+                    row = mi * B + b
+                    solved = sample_valid[b] and host["success"][row] > 0.5
+                    poses.append({
+                        "scene_id": int(batch["scene_id"][b]),
+                        "im_id": int(batch["im_id"][b]),
+                        "R": host["R"][row], "t": host["t"][row],
+                        "score": 1.0 if solved else -1.0,
+                    })
+                n_images += n_real
+            t = mark("aggregate", t)
 
     report: Dict = {"n_images": n_images, "poses": poses}
     if n_images == 0:

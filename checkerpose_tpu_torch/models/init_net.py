@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from checkerpose_tpu_torch.models.backbone import BACKBONE_FEAT_DIMS, make_backbone
 from checkerpose_tpu_torch.models.graph import EdgeConv
 from checkerpose_tpu_torch.models.layers import Conv2d, Dense
+from checkerpose_tpu_torch.utils.logging import span
 
 # the graph feature is the flattened 8x8 stride-32 map of a 256 crop
 _GRID_FEAT = 64
@@ -51,15 +52,17 @@ class InitNet(nn.Module):
         keypoint's 8x8 response map before the graph, the logits of the
         auxiliary heatmap loss (train/steps.py::_aux_heatmap_loss; the JAX
         package sows it as an intermediate)."""
-        feats = self.backbone(img.to(self.dtype))
-        x = self.conv1x1_0(feats[-1])
-        for i in range(1, self.num_conv1x1):
-            x = getattr(self, f"conv1x1_{i}")(F.leaky_relu(x, 0.01))
-        # (B, N, H, W) -> (B, N, H*W): each keypoint's own map, row-major,
-        # the order of the JAX (B,H,W,N) -> (B,N,H,W) -> (B,N,H*W) reshape
-        B, N, H, W = x.shape
-        resp_map = g = x.reshape(B, N, H * W)
-        for i in range(self.num_graph_module):
-            g = getattr(self, f"graph_{i}")(g, knn_idx)
-        bits = self.mlp(g.float())
+        with span("posenet.backbone", img.device):
+            feats = self.backbone(img.to(self.dtype))
+        with span("posenet.init_head", img.device):
+            x = self.conv1x1_0(feats[-1])
+            for i in range(1, self.num_conv1x1):
+                x = getattr(self, f"conv1x1_{i}")(F.leaky_relu(x, 0.01))
+            # (B, N, H, W) -> (B, N, H*W): each keypoint's own map, row-major,
+            # the order of the JAX (B,H,W,N) -> (B,N,H,W) -> (B,N,H*W) reshape
+            B, N, H, W = x.shape
+            resp_map = g = x.reshape(B, N, H * W)
+            for i in range(self.num_graph_module):
+                g = getattr(self, f"graph_{i}")(g, knn_idx)
+            bits = self.mlp(g.float())
         return bits, feats, g, resp_map

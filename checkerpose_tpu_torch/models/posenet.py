@@ -28,6 +28,7 @@ from checkerpose_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvTranspos
                                                  Dense, init_params,
                                                  upsample_bilinear_2x)
 from checkerpose_tpu_torch.ops.knn import check_knn
+from checkerpose_tpu_torch.utils.logging import span
 
 
 def _hard_bit(logits: torch.Tensor) -> torch.Tensor:
@@ -197,6 +198,10 @@ class PoseNet(nn.Module):
         num_active = self.num_refine_steps if stage is None else stage
         if not 1 <= num_active <= self.num_refine_steps:
             raise ValueError(f"stage must be in [1, {self.num_refine_steps}], got {stage}")
+        with span("posenet", img.device):
+            return self._forward(img, knn_idx, num_active, tf_gather)
+
+    def _forward(self, img, knn_idx, num_active: int, tf_gather):
         x = img.permute(0, 3, 1, 2)
         bits, feats, graph_feat, resp_map = self.init_net(x, knn_idx)
         if tuple(feats[-1].shape[2:]) != (8, 8):
@@ -219,27 +224,29 @@ class PoseNet(nn.Module):
 
         img_feat = feats[-1]
         for i in range(num_active):
-            if i > 0:
-                img_feat = torch.cat([img_feat, feats[-i - 1].to(img_feat.dtype)], dim=1)
-            img_feat = getattr(self, f"up_{i}")(img_feat)
-            if self.aux_refine_heads and self.training:
-                r = getattr(self, f"aux_resp_{i}")(img_feat)            # (B, N, H, W)
-                out[f"refine_resp_{i}"] = r.flatten(2)
-            if use_tf:
-                shift = self.res_log2 - (3 + i)
-                g_x = torch.where(tf_sel, gt_x_full >> shift, x_id)
-                g_y = torch.where(tf_sel, gt_y_full >> shift, y_id)
-                g_roi = torch.where(tf_sel[..., None], gt_roi, roi_mask)
-            else:
-                g_x, g_y, g_roi = x_id, y_id, roi_mask
-            new_bits, graph_feat = getattr(self, f"refine_{i}")(
-                img_feat, graph_feat, g_roi, g_x, g_y, knn_idx)
-            x_logits = torch.cat([x_logits, new_bits[..., 0:1]], dim=-1)
-            y_logits = torch.cat([y_logits, new_bits[..., 1:2]], dim=-1)
-            x_id = x_id * 2 + _hard_bit(new_bits[..., 0])
-            y_id = y_id * 2 + _hard_bit(new_bits[..., 1])
+            with span("posenet.stage", img.device):
+                if i > 0:
+                    img_feat = torch.cat([img_feat, feats[-i - 1].to(img_feat.dtype)], dim=1)
+                img_feat = getattr(self, f"up_{i}")(img_feat)
+                if self.aux_refine_heads and self.training:
+                    r = getattr(self, f"aux_resp_{i}")(img_feat)            # (B, N, H, W)
+                    out[f"refine_resp_{i}"] = r.flatten(2)
+                if use_tf:
+                    shift = self.res_log2 - (3 + i)
+                    g_x = torch.where(tf_sel, gt_x_full >> shift, x_id)
+                    g_y = torch.where(tf_sel, gt_y_full >> shift, y_id)
+                    g_roi = torch.where(tf_sel[..., None], gt_roi, roi_mask)
+                else:
+                    g_x, g_y, g_roi = x_id, y_id, roi_mask
+                new_bits, graph_feat = getattr(self, f"refine_{i}")(
+                    img_feat, graph_feat, g_roi, g_x, g_y, knn_idx)
+                x_logits = torch.cat([x_logits, new_bits[..., 0:1]], dim=-1)
+                y_logits = torch.cat([y_logits, new_bits[..., 1:2]], dim=-1)
+                x_id = x_id * 2 + _hard_bit(new_bits[..., 0])
+                y_id = y_id * 2 + _hard_bit(new_bits[..., 1])
 
-        seg_logits = self.seg_block(img_feat.float()).permute(0, 2, 3, 1)
+        with span("posenet.seg", img.device):
+            seg_logits = self.seg_block(img_feat.float()).permute(0, 2, 3, 1)
         out.update({"roi_logit": roi_logit, "x_logits": x_logits, "y_logits": y_logits,
                     "seg_logits": seg_logits, "x_id": x_id, "y_id": y_id})
         return out

@@ -23,6 +23,7 @@ from checkerpose_tpu_torch.eval.decode import (adaptive_ids, ids_to_corresponden
 from checkerpose_tpu_torch.models.posenet import knn_tensor
 from checkerpose_tpu_torch.ops.crop import normalize_image
 from checkerpose_tpu_torch.solver.ransac import FAST_PROFILE, ransac_pnp
+from checkerpose_tpu_torch.utils.logging import span
 
 _DECODE_MODES = ("hard", "soft", "adaptive")
 
@@ -64,19 +65,20 @@ class ServingPipeline:
         B = imgs.shape[0]
         out = self.net(imgs, self.knn, self.p3dn.expand(B, *self.p3dn.shape),
                        stage=self.stage)
-        roi = (out["roi_logit"][..., 0] > 0.0).float()
-        seg = torch.sigmoid(out["seg_logits"][..., 0]) if self.check_seg else None
-        if self.decode_mode == "soft":
-            dec_x, dec_y = soft_ids(out["x_logits"], out["y_logits"])
-        elif self.decode_mode == "adaptive":
-            dec_x, dec_y = adaptive_ids(out["x_logits"], out["y_logits"],
-                                        self.decode_conf_tau)
-        else:
-            dec_x, dec_y = out["x_id"], out["y_id"]
-        return ids_to_correspondences(
-            dec_x, dec_y, roi, bboxes, crop_size_gt=self.res, seg_mask=seg,
-            check_seg=self.check_seg, discard_bd_pixel=self.discard_bd_pixel,
-            filter_x_id=out["x_id"], filter_y_id=out["y_id"])
+        with span("decode", imgs.device):
+            roi = (out["roi_logit"][..., 0] > 0.0).float()
+            seg = torch.sigmoid(out["seg_logits"][..., 0]) if self.check_seg else None
+            if self.decode_mode == "soft":
+                dec_x, dec_y = soft_ids(out["x_logits"], out["y_logits"])
+            elif self.decode_mode == "adaptive":
+                dec_x, dec_y = adaptive_ids(out["x_logits"], out["y_logits"],
+                                            self.decode_conf_tau)
+            else:
+                dec_x, dec_y = out["x_id"], out["y_id"]
+            return ids_to_correspondences(
+                dec_x, dec_y, roi, bboxes, crop_size_gt=self.res, seg_mask=seg,
+                check_seg=self.check_seg, discard_bd_pixel=self.discard_bd_pixel,
+                filter_x_id=out["x_id"], filter_y_id=out["y_id"])
 
     def __call__(self, images_u8, bboxes, cam_K, generator: torch.Generator):
         """images_u8 (B, 256, 256, 3) uint8; bboxes (B, 4) final square crops;
@@ -84,7 +86,7 @@ class ServingPipeline:
         Returns dict of tensors on the device: R (B, 3, 3), t (B, 3),
         inliers (B, N), num_inliers (B,), success (B,)."""
         dev = self.device
-        with torch.inference_mode():
+        with torch.inference_mode(), span("serving.call", dev):
             images_u8 = torch.as_tensor(images_u8, device=dev)
             bboxes = torch.as_tensor(bboxes, dtype=torch.float32, device=dev)
             B = images_u8.shape[0]
@@ -103,6 +105,10 @@ class ServingPipeline:
         for images_u8, bboxes, cam_K in batches:
             pending.append(self(images_u8, bboxes, cam_K, generator))
             if len(pending) > depth:
-                yield {k: v.cpu().numpy() for k, v in pending.popleft().items()}
+                yield self._to_host(pending.popleft())
         while pending:
-            yield {k: v.cpu().numpy() for k, v in pending.popleft().items()}
+            yield self._to_host(pending.popleft())
+
+    def _to_host(self, out):
+        with span("serving.to_host", self.device):
+            return {k: v.cpu().numpy() for k, v in out.items()}

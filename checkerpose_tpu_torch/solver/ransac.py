@@ -16,6 +16,7 @@ import torch
 
 from checkerpose_tpu_torch.device import resolve_device
 from checkerpose_tpu_torch.solver.epnp import epnp, refine_pose_gn, reproj_errors
+from checkerpose_tpu_torch.utils.logging import span
 
 # low-latency serving profile (same values as the JAX package's FAST_PROFILE)
 FAST_PROFILE = dict(num_hyp=64, refine_iters=5, reseed=False, n_backtrack=2)
@@ -52,86 +53,90 @@ def ransac_pnp(p3d, p2d, valid, K, generator: Optional[torch.Generator] = None, 
     success (B,) bool); a failed solve (fewer than 4 valid points or a
     non-finite pose) returns the identity pose.
     """
-    B = p2d.shape[0]
-    n_valid = valid.sum(-1)
-    if hyp_idx is None:
-        if generator is None:
-            raise ValueError("ransac_pnp needs a generator or hyp_idx")
-        hyp_idx = sample_hypotheses(valid, num_hyp, sample_size, generator)
-    idx = hyp_idx.long()
-    bi = torch.arange(B, device=p2d.device)
-    h3d = p3d[bi[:, None, None], idx]                                  # (B, H, S, 3)
-    h2d = p2d[bi[:, None, None], idx]
-    hw = valid[bi[:, None, None], idx]
+    with span("solver", p2d.device):
+        with span("solver.hypotheses", p2d.device):
+            B = p2d.shape[0]
+            n_valid = valid.sum(-1)
+            if hyp_idx is None:
+                if generator is None:
+                    raise ValueError("ransac_pnp needs a generator or hyp_idx")
+                hyp_idx = sample_hypotheses(valid, num_hyp, sample_size, generator)
+            idx = hyp_idx.long()
+            bi = torch.arange(B, device=p2d.device)
+            h3d = p3d[bi[:, None, None], idx]                              # (B, H, S, 3)
+            h2d = p2d[bi[:, None, None], idx]
+            hw = valid[bi[:, None, None], idx]
 
-    Rs, ts = epnp(h3d, h2d, K[:, None], hw, use_eigh=False)           # (B, H, ...)
-    errs = reproj_errors(Rs, ts, p3d[:, None], p2d[:, None], K[:, None])  # (B, H, N)
-    if soft_inlier_sigma > 0:
-        scores = (torch.sigmoid((reproj_thresh - errs) / soft_inlier_sigma)
-                  * valid[:, None]).sum(-1)
-    else:
-        scores = ((errs < reproj_thresh).float() * valid[:, None]).sum(-1)
-    best = scores.argmax(-1)
-    R0, t0 = Rs[bi, best], ts[bi, best]
+            Rs, ts = epnp(h3d, h2d, K[:, None], hw, use_eigh=False)       # (B, H, ...)
+            errs = reproj_errors(Rs, ts, p3d[:, None], p2d[:, None], K[:, None])  # (B,H,N)
+            if soft_inlier_sigma > 0:
+                scores = (torch.sigmoid((reproj_thresh - errs) / soft_inlier_sigma)
+                          * valid[:, None]).sum(-1)
+            else:
+                scores = ((errs < reproj_thresh).float() * valid[:, None]).sum(-1)
+            best = scores.argmax(-1)
+            R0, t0 = Rs[bi, best], ts[bi, best]
 
-    if coherence_weight > 0:
-        d2 = ((p2d[:, :, None] - p2d[:, None]) ** 2).sum(-1)
-        adj = ((d2 < neighborhood_radius ** 2) & (d2 > 0)).float()
-        adj = adj * valid[:, None] * valid[:, :, None]
-        adj_rownorm = adj / torch.clamp_min(adj.sum(-1, keepdim=True), 1.0)
+        with span("solver.refine", p2d.device):
+            if coherence_weight > 0:
+                d2 = ((p2d[:, :, None] - p2d[:, None]) ** 2).sum(-1)
+                adj = ((d2 < neighborhood_radius ** 2) & (d2 > 0)).float()
+                adj = adj * valid[:, None] * valid[:, :, None]
+                adj_rownorm = adj / torch.clamp_min(adj.sum(-1, keepdim=True), 1.0)
 
-    def inlier_w(R, t):
-        e = reproj_errors(R, t, p3d, p2d, K)
-        if soft_inlier_sigma > 0:
-            w = torch.sigmoid((reproj_thresh - e) / soft_inlier_sigma) * valid
-        else:
-            w = (e < reproj_thresh).float() * valid
-        if coherence_weight > 0:
-            sig = soft_inlier_sigma if soft_inlier_sigma > 0 else 0.25
-            logit = (reproj_thresh - e) / sig
-            consensus = (adj_rownorm @ (torch.sigmoid(logit) * valid)[..., None])[..., 0]
-            kappa = 10.0 * coherence_weight
-            w = torch.sigmoid(logit + kappa * (2.0 * consensus - 1.0)) * valid
-        return torch.where((w.sum(-1) >= 4)[:, None], w, valid)
+            def inlier_w(R, t):
+                e = reproj_errors(R, t, p3d, p2d, K)
+                if soft_inlier_sigma > 0:
+                    w = torch.sigmoid((reproj_thresh - e) / soft_inlier_sigma) * valid
+                else:
+                    w = (e < reproj_thresh).float() * valid
+                if coherence_weight > 0:
+                    sig = soft_inlier_sigma if soft_inlier_sigma > 0 else 0.25
+                    logit = (reproj_thresh - e) / sig
+                    consensus = (adj_rownorm
+                                 @ (torch.sigmoid(logit) * valid)[..., None])[..., 0]
+                    kappa = 10.0 * coherence_weight
+                    w = torch.sigmoid(logit + kappa * (2.0 * consensus - 1.0)) * valid
+                return torch.where((w.sum(-1) >= 4)[:, None], w, valid)
 
-    def werr(R, t, w):
-        return (reproj_errors(R, t, p3d, p2d, K) * w).sum(-1) / (w.sum(-1) + 1e-9)
+            def werr(R, t, w):
+                return (reproj_errors(R, t, p3d, p2d, K) * w).sum(-1) / (w.sum(-1) + 1e-9)
 
-    def keep_better(R, t, Rc, tc, w):
-        better = werr(Rc, tc, w) < werr(R, t, w)
-        return (torch.where(better[:, None, None], Rc, R),
-                torch.where(better[:, None], tc, t))
+            def keep_better(R, t, Rc, tc, w):
+                better = werr(Rc, tc, w) < werr(R, t, w)
+                return (torch.where(better[:, None, None], Rc, R),
+                        torch.where(better[:, None], tc, t))
 
-    eye = torch.eye(3, device=p2d.device).expand(B, 3, 3)
-    if irls_rounds <= 0:
-        inliers = (reproj_errors(R0, t0, p3d, p2d, K) < reproj_thresh).float() * valid
-        success = n_valid >= 4
-        return {"R": torch.where(success[:, None, None], R0, eye),
-                "t": torch.where(success[:, None], t0, 0.0),
-                "inliers": inliers, "num_inliers": inliers.sum(-1), "success": success}
+            eye = torch.eye(3, device=p2d.device).expand(B, 3, 3)
+            if irls_rounds <= 0:
+                inliers = (reproj_errors(R0, t0, p3d, p2d, K) < reproj_thresh).float() * valid
+                success = n_valid >= 4
+                return {"R": torch.where(success[:, None, None], R0, eye),
+                        "t": torch.where(success[:, None], t0, 0.0),
+                        "inliers": inliers, "num_inliers": inliers.sum(-1), "success": success}
 
-    gn = dict(iters=refine_iters, n_backtrack=n_backtrack)
-    w = inlier_w(R0, t0)
-    Rc, tc = refine_pose_gn(R0, t0, p3d, p2d, K, w, **gn)
-    if reseed:
-        R2, t2 = epnp(p3d, p2d, K, w)
-        R2, t2 = refine_pose_gn(R2, t2, p3d, p2d, K, w, **gn)
-        use2 = werr(R2, t2, w) < werr(Rc, tc, w)
-        Rc = torch.where(use2[:, None, None], R2, Rc)
-        tc = torch.where(use2[:, None], t2, tc)
-    Rf, tf = keep_better(R0, t0, Rc, tc, w)
+            gn = dict(iters=refine_iters, n_backtrack=n_backtrack)
+            w = inlier_w(R0, t0)
+            Rc, tc = refine_pose_gn(R0, t0, p3d, p2d, K, w, **gn)
+            if reseed:
+                R2, t2 = epnp(p3d, p2d, K, w)
+                R2, t2 = refine_pose_gn(R2, t2, p3d, p2d, K, w, **gn)
+                use2 = werr(R2, t2, w) < werr(Rc, tc, w)
+                Rc = torch.where(use2[:, None, None], R2, Rc)
+                tc = torch.where(use2[:, None], t2, tc)
+            Rf, tf = keep_better(R0, t0, Rc, tc, w)
 
-    for _ in range(max(irls_rounds - 1, 0)):
-        w = inlier_w(Rf, tf)
-        Rc, tc = refine_pose_gn(Rf, tf, p3d, p2d, K, w, **gn)
-        Rf, tf = keep_better(Rf, tf, Rc, tc, w)
+            for _ in range(max(irls_rounds - 1, 0)):
+                w = inlier_w(Rf, tf)
+                Rc, tc = refine_pose_gn(Rf, tf, p3d, p2d, K, w, **gn)
+                Rf, tf = keep_better(Rf, tf, Rc, tc, w)
 
-    inliers = (reproj_errors(Rf, tf, p3d, p2d, K) < reproj_thresh).float() * valid
-    finite = torch.isfinite(Rf).all(-1).all(-1) & torch.isfinite(tf).all(-1)
-    success = (n_valid >= 4) & finite
-    return {"R": torch.where(success[:, None, None], Rf, eye),
-            "t": torch.where(success[:, None], tf, 0.0),
-            "inliers": inliers, "num_inliers": inliers.sum(-1), "success": success}
+            inliers = (reproj_errors(Rf, tf, p3d, p2d, K) < reproj_thresh).float() * valid
+            finite = torch.isfinite(Rf).all(-1).all(-1) & torch.isfinite(tf).all(-1)
+            success = (n_valid >= 4) & finite
+            return {"R": torch.where(success[:, None, None], Rf, eye),
+                    "t": torch.where(success[:, None], tf, 0.0),
+                    "inliers": inliers, "num_inliers": inliers.sum(-1), "success": success}
 
 
 def solve_poses_batched(p3d, p2d, valid, K, generator: Optional[torch.Generator] = None,

@@ -57,6 +57,7 @@ from checkerpose_tpu_torch.ops.crop import normalize_image
 from checkerpose_tpu_torch.ops.raster import face_chunks, render_depth_crops
 from checkerpose_tpu_torch.parallel.mesh import all_sum_, rows
 from checkerpose_tpu_torch.train.state import TrainState
+from checkerpose_tpu_torch.utils.logging import span
 
 
 def teacher_force_prob_at(step: int, base: float, anneal_start: int,
@@ -207,20 +208,22 @@ def _update(state: TrainState, total):
     Adam would otherwise start that parameter's bias correction at the first
     step it sees a gradient. Under a process group the gradients, flattened
     into one tensor, are summed over the ranks before the update."""
-    state.optimizer.zero_grad(set_to_none=False)
-    total.backward()
-    params = [p for group in state.optimizer.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if state.mesh is not None and state.mesh.group is not None:
-        flat = all_sum_(torch.cat([p.grad.reshape(-1) for p in params]), state.mesh)
-        offset = 0
+    with span("train.backward", total.device):
+        state.optimizer.zero_grad(set_to_none=False)
+        total.backward()
+    with span("train.optimizer", total.device):
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
         for p in params:
-            p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
-            offset += p.numel()
-    state.optimizer.step()
-    state.step += 1
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if state.mesh is not None and state.mesh.group is not None:
+            flat = all_sum_(torch.cat([p.grad.reshape(-1) for p in params]), state.mesh)
+            offset = 0
+            for p in params:
+                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
+        state.optimizer.step()
+        state.step += 1
 
 
 def _batch_group(state: TrainState):
@@ -273,15 +276,19 @@ def make_pretrain_step(net, knn_idx, crop_size_gt: int, *, mask_loss_type="BCE",
 
     def step(state: TrainState, batch, generator):
         _check_training(state, net)
-        imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
-                                        use_motion_blur, train=True,
-                                        color_aug_prob=color_aug_prob, mesh=state.mesh)
-        total, metrics = pretrain_loss(
-            net, knn_idx, imgs, batch, crop_size_gt, mask_loss_type=mask_loss_type,
-            proj_loss_type=proj_loss_type, proj_bit_loss_weight=proj_bit_loss_weight,
-            aux_heatmap_weight=aux_heatmap_weight, group=_batch_group(state))
-        _update(state, total)
-        return _reported(metrics, state)
+        dev = batch["image"].device
+        with span("train.step", dev):
+            with span("train.augment", dev):
+                imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
+                                                use_motion_blur, train=True,
+                                                color_aug_prob=color_aug_prob, mesh=state.mesh)
+            with span("train.forward", dev):
+                total, metrics = pretrain_loss(
+                    net, knn_idx, imgs, batch, crop_size_gt, mask_loss_type=mask_loss_type,
+                    proj_loss_type=proj_loss_type, proj_bit_loss_weight=proj_bit_loss_weight,
+                    aux_heatmap_weight=aux_heatmap_weight, group=_batch_group(state))
+            _update(state, total)
+            return _reported(metrics, state)
 
     return step
 
@@ -429,24 +436,29 @@ def make_train_step(net, knn_idx, stage: int, *, roi_loss_type="BCE", proj_loss_
 
     def step(state: TrainState, batch, generator):
         _check_training(state, net)
-        imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
-                                        use_motion_blur, train=True,
-                                        color_aug_prob=color_aug_prob, mesh=state.mesh)
-        sel = None
-        if teacher_force_prob > 0:
-            B, N = batch["proj_xy"].shape[:2]
-            world = 1 if state.mesh is None else state.mesh.world
-            sel = torch.rand(B * world, N, generator=generator,
-                             device=generator.device)[rows(B, state.mesh)] < teacher_force_prob
-        total, metrics = train_loss(
-            net, knn_idx, imgs, batch, stage, sel=sel, roi_loss_type=roi_loss_type,
-            proj_loss_type=proj_loss_type, seg_visib_loss_weight=seg_visib_loss_weight,
-            seg_full_loss_weight=seg_full_loss_weight, full_bits=full_bits,
-            aux_heatmap_weight=aux_heatmap_weight, aux_refine_weight=aux_refine_weight,
-            coord_reg_weight=coord_reg_weight, bit_weights=bit_weights,
-            prefix_correct_mask=prefix_correct_mask, group=_batch_group(state))
-        _update(state, total)
-        return _reported(metrics, state)
+        dev = batch["image"].device
+        with span("train.step", dev):
+            with span("train.augment", dev):
+                imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
+                                                use_motion_blur, train=True,
+                                                color_aug_prob=color_aug_prob, mesh=state.mesh)
+            with span("train.forward", dev):
+                sel = None
+                if teacher_force_prob > 0:
+                    B, N = batch["proj_xy"].shape[:2]
+                    world = 1 if state.mesh is None else state.mesh.world
+                    sel = torch.rand(B * world, N, generator=generator,
+                                     device=generator.device)[rows(B, state.mesh)]
+                    sel = sel < teacher_force_prob
+                total, metrics = train_loss(
+                    net, knn_idx, imgs, batch, stage, sel=sel, roi_loss_type=roi_loss_type,
+                    proj_loss_type=proj_loss_type, seg_visib_loss_weight=seg_visib_loss_weight,
+                    seg_full_loss_weight=seg_full_loss_weight, full_bits=full_bits,
+                    aux_heatmap_weight=aux_heatmap_weight, aux_refine_weight=aux_refine_weight,
+                    coord_reg_weight=coord_reg_weight, bit_weights=bit_weights,
+                    prefix_correct_mask=prefix_correct_mask, group=_batch_group(state))
+            _update(state, total)
+            return _reported(metrics, state)
 
     return step
 
@@ -538,12 +550,16 @@ def make_nocs_train_step(net, *, diameter: float, use_pepper_salt=True,
 
     def step(state: TrainState, batch, generator):
         _check_training(state, net)
-        imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
-                                        use_motion_blur, train=True,
-                                        color_aug_prob=color_aug_prob, mesh=state.mesh)
-        total, metrics = nocs_loss(net, imgs, batch, depth_of(batch), diameter,
-                                   visib_loss_weight, _batch_group(state))
-        _update(state, total)
-        return _reported(metrics, state)
+        dev = batch["image"].device
+        with span("train.step", dev):
+            with span("train.augment", dev):
+                imgs = device_augment_normalize(batch["image"], generator, use_pepper_salt,
+                                                use_motion_blur, train=True,
+                                                color_aug_prob=color_aug_prob, mesh=state.mesh)
+            with span("train.forward", dev):
+                total, metrics = nocs_loss(net, imgs, batch, depth_of(batch), diameter,
+                                           visib_loss_weight, _batch_group(state))
+            _update(state, total)
+            return _reported(metrics, state)
 
     return step

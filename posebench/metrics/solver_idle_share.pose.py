@@ -1,0 +1,7 @@
+"""Percent of the traced stretch of inference batches in which no device
+operation ran while the host was inside the solver (span `solver`)."""
+from posebench.metrics._spans import idle_share_inside
+
+
+def read(ctx):
+    return idle_share_inside(ctx, "solver")

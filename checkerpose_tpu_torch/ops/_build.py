@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build"
 SOURCES = {"edgeconv": _PKG / "csrc" / "edgeconv.cu",
-           "edgeconv_tc": _PKG / "csrc" / "edgeconv_tc.cu"}
+           "edgeconv_tc": _PKG / "csrc" / "edgeconv_tc.cu",
+           "ransac": _PKG / "csrc" / "ransac.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from checkerpose_tpu_torch.ops import _build
+from checkerpose_tpu_torch.utils import counters
+from checkerpose_tpu_torch.utils.counters import reset_launch_counts  # noqa: F401
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -359,11 +361,11 @@ def edgeconv_fused(x, knn, w1, w2m1, scale, bias, slope: float = 0.2,
     return _launch(route, x, knn, w1, w2m1, scale, bias, slope, packed)
 
 
-def reset_launch_counts():
-    """Zero the kernels' launch counts and the per-sample path's call count."""
+@counters.register
+def _reset_counts():
+    """Zero the kernels' launch counts and the per-sample path's call count
+    (`reset_launch_counts()`, imported here, zeroes them with every other
+    module's counts)."""
     edgeconv_fused.launches = 0
     edgeconv_fused.launches_by_route = {"tc": 0, "fma": 0}
     edgeconv_eval_per_sample.calls = 0
-
-
-reset_launch_counts()

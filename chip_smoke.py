@@ -17,10 +17,20 @@ Phases (each raises on failure; the script then exits non-zero):
               odd C and with x off a 16-byte line; time them with CUDA events
               beside the function's bound (and its share), the f32 rows
               beside one cuBLAS SGEMM of the projections alone;
+  2b. solver  the solver's kernel (csrc/ransac.cu, two launches a call)
+              against the eager chain on the card, on the same hypotheses of
+              synthetic PnP problems (0.7 px noise, 20% outliers), at
+              ServingPipeline's call (512 rows, FAST_PROFILE) and
+              evaluate_pipeline's on res34_lm (1,536 rows, 128 hypotheses,
+              reseed): at most 1/16 of the rows depart, none much farther
+              from the true pose, success alike, pose_violations 0, two
+              launches a call; each launch's ms beside its floor, the
+              sampling's and the eager call's ms;
   3. serving  ServingPipeline at bench.py's configuration (hrnet_w18, 512
               keypoints, K=20, stage 3, batch 512 of 256x256 uint8 crops,
               FAST_PROFILE): crops/s, peak memory, EdgeConv launches (must be
-              11 per forward, all on the tensor-core route), finite R and t;
+              11 per forward, all on the tensor-core route), the solver's
+              stages (2 a batch, all on the kernel), finite R and t;
   4. reference the network on the card vs on the CPU, f32, same weights, a
               few crops: ids agree on > 95% of keypoints, seg within 2e-2;
               the f32 forward must go through the FMA kernel 11 times; then
@@ -45,7 +55,8 @@ Phases (each raises on failure; the script then exits non-zero):
               random weights with the seg head's bias centred on the crops,
               batch 64, hard and adaptive with the tau calibrated: (a) report
               keys, rates and the CSV read back; (b) 11 tensor-core EdgeConv
-              launches per forward batch; (c) the metrics on the card against
+              launches per forward batch, one solver call a batch (2 kernel
+              launches); (c) the metrics on the card against
               float64; (d) the f32 harness on the card against the CPU on 8
               images; both kernels against the plain version at the eval
               batch; eval images/s, ms per batch by phase (first batch and
@@ -503,11 +514,16 @@ def phase_serving(device, batch=512, npoint=512, backbone="hrnet_w18", warm=2, i
     dt = time.perf_counter() - t0
     launches = edgeconv_fused.launches
     by_route = dict(edgeconv_fused.launches_by_route)
+    solver_by_route = dict(ransac_pnp.launches_by_route)
 
     expected = EDGECONV_PER_FORWARD * iters if device.type == "cuda" else 0
     if launches != expected or by_route != {r: expected * (r == route) for r in by_route}:
         raise AssertionError(f"EdgeConv kernel launches {launches} {by_route}, expected "
                              f"{expected}, all on route {route}")
+    solver_route = "fused" if device.type == "cuda" else "eager"
+    if solver_by_route != {r: 2 * iters * (r == solver_route) for r in solver_by_route}:
+        raise AssertionError(f"solver stages {solver_by_route}, expected 2 x {iters} batches, "
+                             f"all on route {solver_route}")
     if tuple(out["R"].shape) != (batch, 3, 3) or tuple(out["t"].shape) != (batch, 3):
         raise AssertionError(f"bad output shapes {out['R'].shape} {out['t'].shape}")
     if not (torch.isfinite(out["R"]).all() and torch.isfinite(out["t"]).all()):
@@ -529,7 +545,7 @@ def phase_serving(device, batch=512, npoint=512, backbone="hrnet_w18", warm=2, i
 
     on_card = device.type == "cuda"
     res = {"batch": batch, "iters": iters, "edgeconv_launches": launches,
-           "edgeconv_launches_by_route": by_route,
+           "edgeconv_launches_by_route": by_route, "solver_launches_by_route": solver_by_route,
            "crops_per_s": batch * iters / dt if on_card else None,
            "batch_ms": 1e3 * dt / iters if on_card else None,
            "forward_decode_ms": 1e3 * float(fwd_s) if on_card else None,
@@ -544,7 +560,8 @@ def phase_serving(device, batch=512, npoint=512, backbone="hrnet_w18", warm=2, i
           f"forward+decode {res['forward_decode_ms']} ms, solver {res['solver_ms']} ms "
           f"(median of 3); "
           f"peak {res['peak_mem_gib']} GiB; EdgeConv launches {launches} "
-          f"= {EDGECONV_PER_FORWARD} x {iters} forwards, by route {by_route}; R, t finite; "
+          f"= {EDGECONV_PER_FORWARD} x {iters} forwards, by route {by_route}; solver stages "
+          f"by route {solver_by_route} = 2 x {iters} calls; R, t finite; "
           f"{res['kernel_launches_per_batch']} kernel launches and "
           f"{res['device_ms_per_batch']} ms of device time a batch (profiler)")
 
@@ -712,6 +729,238 @@ def phase_oracle(device, batch=512, npoint=512, S=64, seed=0):
           f"{thresh:.3f} px: all poses recovered; max rot err "
           f"{rot_err.max():.4f} deg, max t err {t_err.max():.4f}")
     return {"max_rot_err_deg": float(rot_err.max()), "max_t_err": float(t_err.max())}
+
+
+# the solver's calls at the benchmark's shapes: ServingPipeline's (FAST_PROFILE,
+# one row a crop) and evaluate_pipeline's on res34_lm (test_lm's settings over
+# 3 stacked filter modes of 512 crops); 512 correspondences a row
+SOLVER_CASES = {"serve": (512, dict(num_hyp=64, refine_iters=5, reseed=False, n_backtrack=2)),
+                "eval": (1536, dict(num_hyp=128, refine_iters=8, reseed=True, n_backtrack=3))}
+# the kernel against the eager chain on the card, on the same hypotheses: at
+# most this share of rows may depart (`solver_departs`), and each that does
+# lands at most SOLVER_FARTHER[0] times the eager chain's error to the true
+# pose plus (deg, units) from it, unless the eager chain lands as near under
+# another choice of the covariance's eigenvector signs (`solver_departures`)
+SOLVER_OFF_SHARE = 1 / 16
+SOLVER_FARTHER = (2.0, 1.0, 5.0)
+COV_SIGNS = tuple((a, b, c) for a in (1.0, -1.0) for b in (1.0, -1.0) for c in (1.0, -1.0))
+
+
+def solver_problems(B, N, seed, device, noise=0.7, outliers=0.2, invalid=0.1):
+    """B PnP problems on one set of N model points (p3d and K expanded, as
+    ServingPipeline passes them): poses by `_random_poses`, pixel noise, a
+    share of gross outliers and of invalid points. Returns f32 tensors
+    (p3d, p2d, valid, K) and the true (R, t) in float64."""
+    rng = np.random.default_rng(seed)
+    p3d = rng.uniform(-40, 40, (N, 3))
+    Q, t, uv, _, _ = _random_poses(rng, B, p3d)
+    uv = uv + noise * rng.standard_normal(uv.shape)
+    bad = rng.random((B, N)) < outliers
+    uv[bad] += rng.uniform(-80, 80, (int(bad.sum()), 2))
+    on = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return (on(p3d).expand(B, N, 3), on(uv), on(rng.random((B, N)) > invalid),
+            on(CAM_K).expand(B, 3, 3)), (Q, t)
+
+
+def rot_deg(Ra, Rb):
+    """Angle in degrees between rotations (..., 3, 3), in float64."""
+    Ra, Rb = np.asarray(Ra, np.float64), np.asarray(Rb, np.float64)
+    cos = (np.trace(Ra @ np.swapaxes(Rb, -1, -2), axis1=-2, axis2=-1) - 1) / 2
+    return np.degrees(np.arccos(np.clip(cos, -1, 1)))
+
+
+def solver_departs(a, b):
+    """Rows where answer a departs from answer b ((answer, best hypothesis)
+    pairs of numpy arrays) by more than the bar the eager chain holds
+    against the JAX solver: another best hypothesis, rotations 0.05 deg or
+    translations 0.1 apart, inlier counts more than 2 apart, another
+    success flag."""
+    (sa, ba), (sb, bb) = a, b
+    return ((ba != bb) | (rot_deg(sa["R"], sb["R"]) > 0.05)
+            | (np.abs(sa["t"] - sb["t"]) > 0.1).any(-1)
+            | (np.abs(sa["num_inliers"] - sb["num_inliers"]) > 2)
+            | (sa["success"] != sb["success"]))
+
+
+def eager_under_signs(args, hyp, rows, **kw):
+    """ransac_pnp's eager answers for `rows` of the problems `args` (p3d,
+    p2d, valid, K) on hypotheses `hyp`, once per sign pattern of COV_SIGNS
+    put on the covariance's eigenvectors, the reseed EPnP's control axes:
+    the one choice its answer depends on that each eigensolver makes
+    freely (LAPACK, cuSOLVER and the kernel's Jacobi each their own way).
+    A list over the patterns of numpy answers."""
+    from unittest import mock
+    from checkerpose_tpu_torch.solver import epnp, ransac
+
+    eigh = epnp._eigh
+    idx = torch.as_tensor(np.asarray(rows), dtype=torch.long, device=args[1].device)
+    sub = [a[idx] for a in args]
+    out = []
+    for signs in COV_SIGNS:
+        def flipped(A, signs=signs):
+            vals, vecs = eigh(A)
+            if A.shape[-1] == 3:
+                vecs = vecs * torch.tensor(signs, dtype=vecs.dtype, device=vecs.device)
+            return vals, vecs
+        with mock.patch.object(epnp, "_eigh", flipped), torch.inference_mode(), \
+                mock.patch.object(ransac, "solver_route", lambda *a: "eager"):
+            sol = ransac.ransac_pnp(*sub, hyp_idx=hyp[idx], **kw)
+        out.append({k: v.cpu().numpy() for k, v in sol.items()})
+    return out
+
+
+def solver_departures(kern, eager, truth, max_off, signs=None):
+    """The rows where `kern` departs from `eager` (`solver_departs`), and the
+    errors of both to the truth (R, t). Raises past `max_off` departing rows,
+    on another success flag, or on a departing row that lands farther from
+    the truth than SOLVER_FARTHER allows against the eager answer and, where
+    `signs` is given (rows -> `eager_under_signs`' list), against every
+    eager answer under another sign pattern. Returns (departing rows, errors
+    {"kern", "eager"} -> (deg, t), rows explained by another sign)."""
+    (a, _), (e, _) = kern, eager
+    R, t = truth
+    off = np.flatnonzero(solver_departs(kern, eager))
+    err = {n: (rot_deg(x["R"], R), np.linalg.norm(x["t"] - t, axis=-1))
+           for n, x in (("kern", a), ("eager", e))}
+    k, dr, dt = SOLVER_FARTHER
+
+    def near(ka, kt, ea, et):
+        return (ka <= k * ea + dr) & (kt <= k * et + dt)
+
+    farther = off[~near(err["kern"][0][off], err["kern"][1][off], err["eager"][0][off],
+                        err["eager"][1][off])]
+    by_sign = np.zeros(0, dtype=int)
+    if farther.size and signs is not None:
+        alts = signs(farther)
+        ok = np.zeros(farther.size, dtype=bool)
+        for alt in alts:
+            ok |= near(err["kern"][0][farther], err["kern"][1][farther],
+                       rot_deg(alt["R"], R[farther]),
+                       np.linalg.norm(alt["t"] - t[farther], axis=-1))
+        by_sign, farther = farther[ok], farther[~ok]
+    if len(off) > max_off or farther.size or (a["success"] != e["success"]).any():
+        row = farther[0] if farther.size else (off[0] if off.size else 0)
+        raise AssertionError(
+            f"the solver kernel departs from the eager chain in rows {off.tolist()} (at most "
+            f"{max_off:g}), {farther.tolist()} farther from the truth; row {row}: "
+            f"{err['kern'][0][row]:.3f} deg, {err['kern'][1][row]:.3f} against the eager "
+            f"{err['eager'][0][row]:.3f} deg, {err['eager'][1][row]:.3f}; success alike: "
+            f"{bool((a['success'] == e['success']).all())}")
+    return off, err, by_sign
+
+
+def solver_bound_ms(B, N, H, S, refine_iters, n_backtrack, irls_rounds, reseed):
+    """A floor for one call of each launch, ms: the larger of its bytes over
+    HBM rate and its f32 operations over the peak. Operations counted, per
+    point: a reprojection error, 31 (R X + t 18, the clamp, 2 x (scale,
+    divide, shift), 2 differences, the square and root 4); launch 1 scores
+    it under every hypothesis (+2: compare, add); launch 2, per Gauss-Newton
+    iteration, the residual (26), the 2 x 6 Jacobian (29), the normal
+    equations' 21 + 6 entries (162) and each candidate's cost (31 + 3), over
+    irls_rounds rounds (one more pass with the reseed), plus each round's
+    weights and werr pair (3 reprojections) and the inlier mask. Left out:
+    each hypothesis's and the reseed's EPnP, Jacobi and Horn solves (small
+    and serial: what the kernel waits on). Bytes: p3d (one row, stride 0),
+    p2d, valid, the hypotheses' indices, the poses and the answer."""
+    reproj = 31
+    hyp_ops = 1.0 * B * H * N * (reproj + 2)
+    gn = refine_iters * (26 + 29 + 162 + (n_backtrack + 1) * (reproj + 3))
+    passes = irls_rounds + (1 if reseed else 0)
+    ref_ops = 1.0 * B * N * (passes * gn + irls_rounds * 3 * reproj + reproj)
+    hyp_bytes = 4 * (3 * N + B * N * 3 + 13 * B) + 8 * B * H * S
+    ref_bytes = 4 * (3 * N + B * N * 4 + 24 * B) + B
+    out = {}
+    for name, ops, nbytes in (("hypotheses", hyp_ops, hyp_bytes), ("refine", ref_ops, ref_bytes)):
+        bytes_ms, ops_ms = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * ops / PEAK_F32_S
+        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def phase_solver(device, cases=None, N=512, iters=20, eager_iters=3, seed=0):
+    """The solver's kernel (csrc/ransac.cu, route "fused") against the eager
+    chain (route "eager") on the card, on the same hypotheses, at each case
+    of SOLVER_CASES: their answers held by `solver_departures`, every answer
+    by posebench's `pose_violations`, two launches and no eager stage a
+    fused call; each launch's ms (CUDA events over `iters` calls) beside its
+    floor (`solver_bound_ms`), the sampling's (`sample_hypotheses`, which
+    both routes run first) and the eager call's. Off the card the eager
+    chain stands in for the kernel (no kernel, no time)."""
+    from unittest import mock
+    from posebench.reference.poses import pose_violations
+    from checkerpose_tpu_torch.solver import fused, ransac
+    from checkerpose_tpu_torch.solver.ransac import eager_hypotheses, ransac_pnp, sample_hypotheses
+
+    on_card = device.type == "cuda"
+    rows = []
+    for case, (B, kw) in (cases or SOLVER_CASES).items():
+        kw = dict(kw)
+        H = kw.pop("num_hyp")
+        S, thresh = 6, 2.0
+        args, truth = solver_problems(B, N, seed, device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        hyp = sample_hypotheses(args[2], H, S, gen)
+        full = dict(reproj_thresh=thresh, irls_rounds=2, soft_inlier_sigma=0.0,
+                    coherence_weight=0.0, neighborhood_radius=20.0, **kw)
+        out, ms = {}, {}
+        for route in ("fused", "eager"):
+            kernel = route == "fused" and on_card
+            counted = "fused" if kernel else "eager"
+            with torch.inference_mode(), mock.patch.object(ransac, "solver_route",
+                                                           lambda *a, r=counted: r):
+                before = dict(ransac_pnp.launches_by_route)
+                sol = ransac_pnp(*args, hyp_idx=hyp, **full)
+                _sync(device)
+                took = {r: ransac_pnp.launches_by_route[r] - before[r] for r in before}
+                if took != {r: 2 * (r == counted) for r in took}:
+                    raise AssertionError(f"solver route {counted}: stages counted {took}")
+                if kernel:
+                    pose0, best = fused.hypotheses(*args, hyp, thresh, 0.0)
+                    ms["hypotheses_ms"] = time_ms(
+                        lambda: fused.hypotheses(*args, hyp, thresh, 0.0), device, iters)
+                    ms["refine_ms"] = time_ms(lambda: fused.refine(*args, pose0, **full),
+                                              device, iters)
+                else:
+                    best = eager_hypotheses(*args, hyp, thresh, 0.0)[2]
+                    if route == "eager":
+                        ms["eager_call_ms"] = time_ms(
+                            lambda: ransac_pnp(*args, hyp_idx=hyp, **full), device,
+                            eager_iters, warm=1)
+            viol = pose_violations(sol["R"], sol["t"], sol["inliers"], sol["num_inliers"],
+                                   sol["success"], args[2], args[0], args[1], args[3], thresh,
+                                   1e-2)
+            if any(int(v.sum()) for v in viol.values()):
+                raise AssertionError(f"solver route {route} ({case}): pose_violations "
+                                     f"{ {k: int(v.sum()) for k, v in viol.items()} }")
+            out[route] = ({k: v.cpu().numpy() for k, v in sol.items()}, best.cpu().numpy())
+        off, err, by_sign = solver_departures(
+            out["fused"], out["eager"], truth, SOLVER_OFF_SHARE * B,
+            signs=lambda rows: eager_under_signs(args, hyp, rows, **full))
+        ms["sample_ms"] = time_ms(lambda: sample_hypotheses(args[2], H, S, gen), device, iters)
+        bound = solver_bound_ms(B, N, H, S, full["refine_iters"], full["n_backtrack"],
+                                full["irls_rounds"], full["reseed"])
+        row = {"case": case, "B": B, "N": N, "H": H, "S": S, **kw, **ms,
+               "fused_ms": (ms["hypotheses_ms"] + ms["refine_ms"]) if on_card else None,
+               "bound_ms": {k: v[0] for k, v in bound.items()},
+               "bound_by": {k: v[1] for k, v in bound.items()},
+               "departing_rows": int(len(off)), "rows_of_another_sign": int(by_sign.size),
+               "median_err_deg": {n: float(np.median(e[0])) for n, e in err.items()},
+               "median_err_t": {n: float(np.median(e[1])) for n, e in err.items()}}
+        if not on_card:
+            row.update({k: None for k in ("hypotheses_ms", "refine_ms", "eager_call_ms",
+                                          "sample_ms")})
+        rows.append(row)
+        say(f"[solver] {case}: B={B} N={N} H={H} {kw}: kernel {row['fused_ms']} ms a call "
+            f"(hypotheses {row['hypotheses_ms']}, refine {row['refine_ms']}; floors "
+            f"{row['bound_ms']} ms, {row['bound_by']}), sampling {row['sample_ms']} ms, eager "
+            f"chain {row['eager_call_ms']} ms a call; {len(off)} of {B} rows depart from the "
+            f"eager chain (at most {SOLVER_OFF_SHARE * B:g}), none farther from the truth than "
+            f"{SOLVER_FARTHER[0]:g} x its + ({SOLVER_FARTHER[1]:g} deg, {SOLVER_FARTHER[2]:g}) "
+            f"but {by_sign.size} as near as the eager chain under other covariance signs; "
+            f"median error to the truth {row['median_err_deg']} deg, {row['median_err_t']}; "
+            f"pose_violations 0")
+        if on_card:
+            torch.cuda.empty_cache()
+    return rows
 
 
 # the flagship single-object network of config/lmo/hr18GNN2_res6_gnn3Skip_mlpQuery.txt
@@ -1503,6 +1752,7 @@ def phase_eval(device, root=None, n_test=128, n_calib=16, n_scenes=2, batch=64,
     from checkerpose_tpu_torch.cli.train import build_pose_net
     from checkerpose_tpu_torch.data.synthetic import make_synthetic_bop
     from checkerpose_tpu_torch.ops.edgeconv import edgeconv_fused, reset_launch_counts
+    from checkerpose_tpu_torch.solver.ransac import ransac_pnp
     from checkerpose_tpu_torch.train.checkpoint import CheckpointManager
     from checkerpose_tpu_torch.train.state import create_pose_state, make_optimizer
 
@@ -1555,8 +1805,20 @@ def phase_eval(device, root=None, n_test=128, n_calib=16, n_scenes=2, batch=64,
             raise AssertionError(f"gate (b): {mode} run's EdgeConv launches {by_route}, "
                                  f"expected {want} ({EDGECONV_PER_FORWARD} x {forwards} "
                                  f"forward batches, all on the tensor-core route)")
+        # one solver call a forward batch of the sweep (its filter modes
+        # stacked), two stages a call; the calibration's sweeps add theirs
+        solver_by_route = dict(ransac_pnp.launches_by_route)
+        solver_route = "fused" if on_card else "eager"
+        calls = solver_by_route[solver_route] // 2
+        if (calls != test_batches if mode == "hard" else calls < test_batches) or any(
+                n for r, n in solver_by_route.items() if r != solver_route) \
+                or solver_by_route[solver_route] % 2:
+            raise AssertionError(f"gate (b): {mode} run's solver stages {solver_by_route}, "
+                                 f"expected 2 a call, one call a batch of the sweep "
+                                 f"({test_batches}), all on route {solver_route}")
         run = {"cli_wall_s": wall if on_card else None, "forward_batches": forwards,
                "edgeconv_launches_by_route": by_route,
+               "solver_launches_by_route": solver_by_route,
                **_gate_eval_report(report, csv_path, n_images, mode == "adaptive"),
                "adx10": {m: report[m]["adx10"] for m in ("none", "full", "visib")},
                "n_valid_mean": {m: report[m]["n_valid_mean"] for m in ("none", "full", "visib")},
@@ -1575,7 +1837,8 @@ def phase_eval(device, root=None, n_test=128, n_calib=16, n_scenes=2, batch=64,
                 f"device synchronised at each phase's end): mean {run['ms_per_batch']}, first "
                 f"{run['ms_first_batch']}, after the first {run['ms_per_batch_after_first']}; "
                 f"peak {run['peak_mem_gib']} GiB; EdgeConv launches {by_route} = "
-                f"{EDGECONV_PER_FORWARD} x {forwards} forward batches")
+                f"{EDGECONV_PER_FORWARD} x {forwards} forward batches; solver stages "
+                f"{solver_by_route}")
         else:
             run.update(tau=report["decode_conf_tau"], tau_sweep=report["tau_sweep"])
             say(f"[eval] adaptive, tau calibrated on {min(32, n_scenes * n_calib)} train_real "
@@ -4438,6 +4701,34 @@ def kernel_summary(rows, launches_by_route, train_eval_launches=None, eval_launc
     return entries
 
 
+def solver_summary(rows, by_path):
+    """The solver kernel's two launches for the JSON line, one entry each:
+    `launches` is the serving phase's count of that launch (one a call, so
+    half the route's stages), `launches_by_path` each path's stages by route
+    ({path: {"fused": n, "eager": m}}); at each case of phase solver its ms a
+    call, its floor and the eager chain's ms for the whole call."""
+    entries = []
+    for name in ("hypotheses", "refine"):
+        entries.append({
+            "name": f"ransac_{name}", "route": "cuda",
+            "source": "checkerpose_tpu_torch/csrc/ransac.cu",
+            "replaces": "the eager chain of checkerpose_tpu_torch/solver/ransac.py (the JAX "
+                        "package's solver is XLA, no kernel)",
+            "launches": by_path["serving"]["fused"] // 2, "launches_on": "phase serving",
+            "launches_by_path": by_path,
+            "library_ms": None,
+            "per": "one call of ransac_pnp",
+            "shapes": [{"case": r["case"], "B": r["B"], "N": r["N"], "H": r["H"],
+                        "ms": r[f"{name}_ms"], "bound_ms": r["bound_ms"][name],
+                        "bound_by": r["bound_by"][name],
+                        "bound_share": (r["bound_ms"][name] / r[f"{name}_ms"]
+                                        if r[f"{name}_ms"] else None),
+                        "eager_call_ms": r["eager_call_ms"], "sample_ms": r["sample_ms"],
+                        "departing_rows": r["departing_rows"]} for r in rows],
+        })
+    return entries
+
+
 def parallel_launches(parallel):
     """Phase parallel's paths for the kernels line: the DP train CLI's evals
     and, where (c) ran, the native and python test CLI runs."""
@@ -4488,6 +4779,7 @@ def main(argv=None) -> int:
 
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels, device, seed=args.seed)
+    solver = timed("solver", phase_solver, device, seed=args.seed)
     if args.steps:
         timed("steps", phase_steps, device, seed=args.seed)
     serving = timed("serving", phase_serving, device, seed=args.seed, profile_dir=args.profile)
@@ -4530,7 +4822,9 @@ def main(argv=None) -> int:
         evaluation["hard"]["edgeconv_launches_by_route"], eval_rows,
         {**workflow["launches_by_path"], **lm_paths, **backbones["launches_by_path"],
          "reference_f32_serving": reference["f32_serving"]["edgeconv_launches_by_route"],
-         **parallel_launches(parallel), **trained["launches_by_path"]}),
+         **parallel_launches(parallel), **trained["launches_by_path"]})
+        + solver_summary(solver, {"serving": serving["solver_launches_by_route"],
+                                  "eval": evaluation["hard"]["solver_launches_by_route"]}),
         "lm_path_launches": {k: sum(p[k] for p in lm_paths.values())
                              for k in ("tc", "fma", "per_sample")},
         "script_s": script_s, "phase_s": phase_s}))

@@ -153,6 +153,7 @@ def test_chip_smoke_phases_rehearsed_on_cpu():
                                        warm=1, iters=1)
     assert serving["edgeconv_launches"] == 0 and serving["crops_per_s"] is None
     assert serving["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}
+    assert serving["solver_launches_by_route"] == {"fused": 0, "eager": 2}  # one batch
     ref = chip_smoke.phase_reference(dev, npoint=NPT, backbone="hrnet_w18_small",
                                      serve_batch=2, serve_warm=1, serve_iters=1)
     assert ref["f32"]["x_id"] == 1.0
@@ -178,6 +179,31 @@ def test_chip_smoke_phases_rehearsed_on_cpu():
     assert chip_smoke.edgeconv_bound_ms(512, 512, 20, 256, 256, torch.float32)[1] == "operations"
     if not torch.cuda.is_available():
         assert chip_smoke.main([]) == 1          # the script refuses the CPU
+
+
+def test_chip_smoke_solver_phase_rehearsed_on_cpu():
+    """phase_solver small on the CPU, where the eager chain stands in for the
+    kernel: both routes' gates run, no time is made up, and the kernels line
+    gets one entry a launch with each case's floor."""
+    cases = {"serve": (8, dict(num_hyp=16, refine_iters=2, reseed=False, n_backtrack=2)),
+             "eval": (6, dict(num_hyp=16, refine_iters=2, reseed=True, n_backtrack=3))}
+    rows = chip_smoke.phase_solver(torch.device("cpu"), cases=cases, N=64, iters=1)
+    assert [r["case"] for r in rows] == ["serve", "eval"]
+    assert all(r["departing_rows"] == 0 and r["rows_of_another_sign"] == 0 for r in rows)
+    for key in ("fused_ms", "hypotheses_ms", "refine_ms", "eager_call_ms", "sample_ms"):
+        assert all(r[key] is None for r in rows)
+    entries = chip_smoke.solver_summary(rows, {"serving": {"fused": 10, "eager": 0},
+                                               "eval": {"fused": 4, "eager": 0}})
+    assert [e["name"] for e in entries] == ["ransac_hypotheses", "ransac_refine"]
+    assert all(e["launches"] == 5 for e in entries)
+    assert all(s["bound_ms"] > 0 and s["bound_share"] is None
+               for e in entries for s in e["shapes"])
+    # the floors at the benchmark's calls: scoring (launch 1) grows with the
+    # hypotheses, the refine with its passes
+    small = chip_smoke.solver_bound_ms(512, 512, 64, 6, 5, 2, 2, False)
+    large = chip_smoke.solver_bound_ms(1536, 512, 128, 6, 8, 3, 2, True)
+    assert large["hypotheses"][0] == pytest.approx(6 * small["hypotheses"][0])
+    assert large["refine"][0] > 3 * small["refine"][0]
 
 
 def test_chip_smoke_train_phase_rehearsed_on_cpu(tmp_path):
@@ -229,6 +255,7 @@ def test_chip_smoke_eval_phase_rehearsed_on_cpu(tmp_path, monkeypatch):
     hard, adaptive = res["hard"], res["adaptive"]
     assert hard["forward_batches"] == 2 and adaptive["forward_batches"] == 2 + 5
     assert hard["edgeconv_launches_by_route"] == {"tc": 0, "fma": 0}    # no card, no launch
+    assert hard["solver_launches_by_route"] == {"fused": 0, "eager": 2 * 2}  # 2 batches
     assert adaptive["tau"] in adaptive["tau_sweep"]
     assert res["card_vs_cpu"]["diff"] == {"seg_acc": 0.0, "seg_iou": 0.0, "bit_err": 0.0,
                                           "n_valid_mean_rel": 0.0}     # the CPU against itself

@@ -15,42 +15,11 @@ from checkerpose_tpu_torch.eval.decode import ids_to_correspondences
 from checkerpose_tpu_torch.solver import epnp as tepnp
 from checkerpose_tpu_torch.solver.ransac import (FAST_PROFILE, sample_hypotheses,
                                                  solve_poses_batched)
+from torch_parity import LM_K as K
+from torch_parity import pnp_problems, random_rotation, rot_deg
 
 # the JAX solver package re-exports the function `epnp` over its module name
 jepnp = importlib.import_module("checkerpose_tpu.solver.epnp")
-K = np.array([[572.4114, 0, 325.2611], [0, 573.57043, 242.04899], [0, 0, 1.0]], np.float32)
-
-
-def _rot(rng):
-    Q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
-    if np.linalg.det(Q) < 0:
-        Q[:, 0] *= -1
-    return Q
-
-
-def _problems(B, N, seed, noise=0.5, outliers=0.0):
-    """B random well-posed PnP problems: points in a 80-unit box at depth
-    350-500, pixel noise, a share of gross outliers, random validity."""
-    rng = np.random.default_rng(seed)
-    p3d = rng.uniform(-40, 40, (B, N, 3))
-    Rs = np.stack([_rot(rng) for _ in range(B)])
-    ts = np.stack([rng.uniform(-20, 20, B), rng.uniform(-20, 20, B),
-                   rng.uniform(350, 500, B)], -1)
-    cam = np.einsum("bij,bnj->bni", Rs, p3d) + ts[:, None]
-    uv = (cam @ K.T.astype(np.float64))
-    uv = uv[..., :2] / uv[..., 2:3] + noise * rng.standard_normal((B, N, 2))
-    bad = rng.random((B, N)) < outliers
-    uv[bad] += rng.uniform(-80, 80, (int(bad.sum()), 2))
-    valid = (rng.random((B, N)) > 0.1).astype(np.float32)
-    w = rng.uniform(0.2, 1.0, (B, N)).astype(np.float32) * valid
-    f32 = lambda a: a.astype(np.float32)  # noqa: E731
-    return f32(p3d), f32(uv), valid, w, Rs, ts
-
-
-def _rot_deg(Ra, Rb):
-    Ra, Rb = np.asarray(Ra, np.float64), np.asarray(Rb, np.float64)
-    cos = (np.trace(Ra @ np.swapaxes(Rb, -1, -2), axis1=-2, axis2=-1) - 1) / 2
-    return np.degrees(np.arccos(np.clip(cos, -1, 1)))
 
 
 def _t(a):
@@ -63,7 +32,7 @@ def test_epnp_matches_jax(use_eigh, noise):
     LAPACK picks freely, and EPnP on noisy points is not invariant to that
     basis: both sides are then held on exact correspondences. The
     hypothesis path (fixed basis) is held on noisy ones."""
-    p3d, p2d, valid, w, Rs, ts = _problems(6, 40, seed=1, noise=noise)
+    p3d, p2d, valid, w, Rs, ts = pnp_problems(6, 40, seed=1, noise=noise)
     Kb = np.broadcast_to(K, (6, 3, 3))
     jR, jt = jax.jit(jax.vmap(lambda a, b, k, ww: jepnp.epnp(a, b, k, ww, use_eigh=use_eigh)))(
         p3d, p2d, Kb, w)
@@ -71,13 +40,13 @@ def test_epnp_matches_jax(use_eigh, noise):
     # two f32 implementations of the same closed form, summed in another
     # order: rotations within 0.05 deg, translations within 0.05 units
     # (~1e-4 relative at depth 400)
-    assert _rot_deg(tR.numpy(), np.asarray(jR)).max() < 0.05
+    assert rot_deg(tR.numpy(), np.asarray(jR)).max() < 0.05
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=5e-2)
-    assert _rot_deg(tR.numpy(), Rs).max() < 3.0          # and near the truth
+    assert rot_deg(tR.numpy(), Rs).max() < 3.0          # and near the truth
 
 
 def test_refine_and_reproj_match_jax():
-    p3d, p2d, valid, w, Rs, ts = _problems(6, 40, seed=2)
+    p3d, p2d, valid, w, Rs, ts = pnp_problems(6, 40, seed=2)
     Kb = np.ascontiguousarray(np.broadcast_to(K, (6, 3, 3)))
     rng = np.random.default_rng(3)
     # start ~3 deg and a few units off the truth
@@ -93,7 +62,7 @@ def test_refine_and_reproj_match_jax():
         R0, t0, p3d, p2d, Kb, w)
     tR, tt = tepnp.refine_pose_gn(_t(R0), _t(t0), _t(p3d), _t(p2d), _t(Kb), _t(w),
                                   iters=5, n_backtrack=2)
-    assert _rot_deg(tR.numpy(), np.asarray(jR)).max() < 0.05
+    assert rot_deg(tR.numpy(), np.asarray(jR)).max() < 0.05
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=5e-2)
     # project_so3 returns an orthonormal matrix
     np.testing.assert_allclose(tR.numpy() @ np.swapaxes(tR.numpy(), 1, 2),
@@ -109,7 +78,7 @@ def test_solve_poses_batched_on_jax_hypotheses(mode):
     """The port's RANSAC on the JAX sampler's own indices (rebuilt as
     ransac.py does: split the key per image, then _sample_hypotheses)."""
     B, N = 4, 64
-    p3d, p2d, valid, _, Rs, ts = _problems(B, N, seed=4, noise=0.7, outliers=0.2)
+    p3d, p2d, valid, _, Rs, ts = pnp_problems(B, N, seed=4, noise=0.7, outliers=0.2)
     key = jax.random.PRNGKey(7)
     jsol = jax_solve(p3d, p2d, valid, K, key, **mode)
     keys = jax.random.split(key, B)
@@ -117,7 +86,7 @@ def test_solve_poses_batched_on_jax_hypotheses(mode):
                                                   mode["num_hyp"], 6)) for b in range(B)])
     tsol = solve_poses_batched(p3d, p2d, valid, K, hyp_idx=hyp, device="cpu", **mode)
     # same hypotheses and the same f32 math: poses agree to 0.05 deg and 0.1
-    assert _rot_deg(tsol["R"].numpy(), np.asarray(jsol["R"])).max() < 0.05
+    assert rot_deg(tsol["R"].numpy(), np.asarray(jsol["R"])).max() < 0.05
     np.testing.assert_allclose(tsol["t"].numpy(), np.asarray(jsol["t"]), atol=0.1)
     np.testing.assert_array_equal(tsol["success"].numpy(), np.asarray(jsol["success"]))
     assert np.abs(tsol["num_inliers"].numpy() - np.asarray(jsol["num_inliers"])).max() <= 2
@@ -141,7 +110,7 @@ def test_oracle_codes_recover_pose():
     p3d = rng.uniform(-40, 40, (N, 3)).astype(np.float32)
     Rs, ts, rois, xs, ys, bboxes = [], [], [], [], [], []
     for i in range(B):
-        R = np.asarray(_rot(np.random.default_rng(i)))
+        R = np.asarray(random_rotation(np.random.default_rng(i)))
         t = np.array([rng.uniform(-20, 20), rng.uniform(-20, 20), rng.uniform(350, 500)])
         uv, _ = project_pts(p3d.astype(np.float64), K.astype(np.float64), R, t)
         side = max(np.ptp(uv[:, 0]), np.ptp(uv[:, 1])) * 1.4
@@ -157,7 +126,7 @@ def test_oracle_codes_recover_pose():
     sol = solve_poses_batched(p3d, p2d, valid, K, torch.Generator().manual_seed(0),
                               device="cpu", num_hyp=64)
     for i in range(B):
-        assert _rot_deg(sol["R"][i].double().numpy(), Rs[i]) < 3.0
+        assert rot_deg(sol["R"][i].double().numpy(), Rs[i]) < 3.0
         assert np.linalg.norm(sol["t"][i].double().numpy() - ts[i]) < 10.0
         assert bool(sol["success"][i])
 
@@ -165,7 +134,7 @@ def test_oracle_codes_recover_pose():
 def test_degenerate_batch_fails_cleanly():
     """Fewer than 4 valid points or collapsed correspondences: identity
     pose, success False, nothing raised, like the JAX solver."""
-    p3d, p2d, valid, _, _, _ = _problems(3, 20, seed=5)
+    p3d, p2d, valid, _, _, _ = pnp_problems(3, 20, seed=5)
     valid[0] = 0.0
     valid[0, :3] = 1.0
     p2d[1] = p2d[1, :1]                         # every point on one pixel

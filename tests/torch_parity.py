@@ -83,6 +83,45 @@ def require_cuda():
         pytest.skip("needs a CUDA device")
 
 
+# LM's camera (the solver tests' intrinsics)
+LM_K = np.array([[572.4114, 0, 325.2611], [0, 573.57043, 242.04899], [0, 0, 1.0]], np.float32)
+
+
+def random_rotation(rng):
+    """A uniform-ish rotation from the QR of a Gaussian matrix, det +1."""
+    Q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    if np.linalg.det(Q) < 0:
+        Q[:, 0] *= -1
+    return Q
+
+
+def pnp_problems(B, N, seed, noise=0.5, outliers=0.0):
+    """B random well-posed PnP problems under LM_K: points in a 80-unit box
+    at depth 350-500, pixel noise, a share of gross outliers, random
+    validity. Returns f32 (p3d, p2d, valid, w) and the true (R, t)."""
+    rng = np.random.default_rng(seed)
+    p3d = rng.uniform(-40, 40, (B, N, 3))
+    Rs = np.stack([random_rotation(rng) for _ in range(B)])
+    ts = np.stack([rng.uniform(-20, 20, B), rng.uniform(-20, 20, B),
+                   rng.uniform(350, 500, B)], -1)
+    cam = np.einsum("bij,bnj->bni", Rs, p3d) + ts[:, None]
+    uv = (cam @ LM_K.T.astype(np.float64))
+    uv = uv[..., :2] / uv[..., 2:3] + noise * rng.standard_normal((B, N, 2))
+    bad = rng.random((B, N)) < outliers
+    uv[bad] += rng.uniform(-80, 80, (int(bad.sum()), 2))
+    valid = (rng.random((B, N)) > 0.1).astype(np.float32)
+    w = rng.uniform(0.2, 1.0, (B, N)).astype(np.float32) * valid
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    return f32(p3d), f32(uv), valid, w, Rs, ts
+
+
+def rot_deg(Ra, Rb):
+    """Angle in degrees between rotations (..., 3, 3), in float64."""
+    Ra, Rb = np.asarray(Ra, np.float64), np.asarray(Rb, np.float64)
+    cos = (np.trace(Ra @ np.swapaxes(Rb, -1, -2), axis1=-2, axis2=-1) - 1) / 2
+    return np.degrees(np.arccos(np.clip(cos, -1, 1)))
+
+
 def standin_solver(p3d, p2d, valid, K, _draws, device=None, **kw):
     """A deterministic `solve_poses_batched` for both packages' harnesses
     (monkeypatched into each harness module): the port's solver on the CPU

@@ -11,7 +11,10 @@ before the loop's set-up, so that the harness wraps the faulty entry.
   its outputs for the second half too; in training the loss is the mean
   over the first half alone;
 * unchanged: a training step computes its loss and gradients but leaves
-  the parameters and the optimizer's state as they were.
+  the parameters and the optimizer's state as they were;
+* other_objects: on a stacked (O, N, K) graph table, each sample's
+  EdgeConvs gather on the next object's rows (object o on o + 1 mod O)
+  instead of its own.
 """
 from __future__ import annotations
 
@@ -105,5 +108,17 @@ def unchanged():
     return _patched(steps, "_update", make)
 
 
+def other_objects():
+    from checkerpose_tpu_torch.train import steps
+
+    def make(knn_for_batch):
+        def wrapped(knn_idx, batch):
+            if knn_idx.dim() == 3:
+                batch = dict(batch, obj_idx=(batch["obj_idx"] + 1) % knn_idx.shape[0])
+            return knn_for_batch(knn_idx, batch)
+        return wrapped
+    return _patched(steps, "knn_for_batch", make)
+
+
 FAULTS = {"altered_pose": altered_pose, "altered_bit": altered_bit,
-          "half_batch": half_batch, "unchanged": unchanged}
+          "half_batch": half_batch, "unchanged": unchanged, "other_objects": other_objects}

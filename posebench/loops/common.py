@@ -12,7 +12,7 @@ from posebench.reference import model as ref
 
 # one tag per use of a run's seed
 SEED_WEIGHTS, SEED_CROPS, SEED_KEYPOINTS, SEED_POSES, SEED_SAMPLE, SEED_SOLVER = range(1, 7)
-SEED_ARRIVALS, SEED_STEPS, SEED_CALIBRATION = 7, 8, 9
+SEED_ARRIVALS, SEED_STEPS, SEED_CALIBRATION, SEED_OBJECTS = 7, 8, 9, 10
 CALIBRATION_CROPS = 16
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}

@@ -3,6 +3,11 @@ recipe (Adam, the curriculum stage, the colour augmentation with salt and
 pepper and motion blur), on a device-resident pool of seeded synthetic
 batches: uint8 crops, the keypoints' projections under random poses, their
 boxes, random visible and full masks. The host loader is not in this cell.
+A configuration of one object trains on its static (N, K) graph; one of
+more on the stacked (O, N, K) table, each sample's object drawn uniformly
+from the seed (`obj_idx`), so that every EdgeConv runs on the batch's
+per-sample (B, N, K) graph (`train/steps.py::knn_for_batch`), as
+`train_lm.py` trains on mixed-object batches.
 
 Set-up builds the one train state the window uses and drives it through
 its first steps on batches that all differ; the reference follows the
@@ -12,7 +17,10 @@ a near-tie decided the other way does not send the two down different
 paths.
 
 Traffic keys: batch, pool_batches, warm_steps (set-up, the checked steps
-included), checked_steps, span_steps, trace_warm, trace_steps.
+included), checked_steps, span_steps, trace_warm, trace_steps, and
+optionally rate_metric: the end-to-end metric the window's images/s is
+reported as (default `train_images_per_s`), so that a cell can be held to
+a bound of its own.
 """
 from __future__ import annotations
 
@@ -45,11 +53,11 @@ def leaf_gaps(prog, refn, keep=None):
 
 class Loop:
     training = True
-    per_sample_graph = False
 
     def __init__(self, ctx):
         self.ctx, self.t = ctx, ctx.cell.traffic
         self.rate, self.steps = None, 0
+        self.per_sample_graph = ctx.cell.config["objects"] > 1
 
     def setup(self):
         from checkerpose_tpu_torch.train.state import create_pose_state, make_optimizer
@@ -59,7 +67,7 @@ class Loop:
         self.state0 = common.state_for(ctx)
         net = common.program_net(cfg, self.state0, dev)
         p3d, p3dn, knn = common.keypoint_sets(ctx)
-        self.knn = torch.as_tensor(knn[0], device=dev)
+        self.knn = torch.as_tensor(knn if self.per_sample_graph else knn[0], device=dev)
         self.train_state = create_pose_state(net, make_optimizer(tc["learning_rate"]),
                                              seed=None, device=dev)
         self.step_fn = make_train_step(net, self.knn, tc["stage"],
@@ -68,16 +76,22 @@ class Loop:
         B, P = t["batch"], t["pool_batches"]
         crops = inputs.device_crops(inputs.torch_seed(ctx.seed, common.SEED_CROPS), B * P, dev)
         rng = inputs.rng_for(ctx.seed, common.SEED_POSES)
+        obj_rng = inputs.rng_for(ctx.seed, common.SEED_OBJECTS)
         self.pool = []
         for i in range(P):
-            _, _, uv, bbox = inputs.random_poses(rng, B, p3d[0])
+            obj = obj_rng.integers(0, len(p3d), B) if self.per_sample_graph else None
+            rows = 0 if obj is None else obj
+            _, _, uv, bbox = inputs.random_poses(rng, B, p3d[rows])
             m = inputs.masks(rng, B)
-            self.pool.append({
+            batch = {
                 "image": crops[i * B:(i + 1) * B], "proj_xy": torch.as_tensor(uv, device=dev),
                 "bbox": torch.as_tensor(bbox, device=dev),
                 "mask_visib": torch.as_tensor(m["mask_visib"], device=dev),
                 "mask_full": torch.as_tensor(m["mask_full"], device=dev),
-                "p3d_normed": torch.as_tensor(p3dn[0], device=dev).expand(B, -1, -1)})
+                "p3d_normed": torch.as_tensor(p3dn[rows], device=dev).expand(B, -1, -1)}
+            if obj is not None:
+                batch["obj_idx"] = torch.as_tensor(obj, device=dev)
+            self.pool.append(batch)
         self.aug_seed = inputs.torch_seed(ctx.seed, common.SEED_STEPS)
         self.gen = torch.Generator(device=dev).manual_seed(self.aug_seed)
         # the checked steps: the window's own call and feed, on distinct batches
@@ -107,6 +121,13 @@ class Loop:
                             ("x_id", "y_id", "roi_logit", "x_logits", "y_logits", "seg_logits")})
         self.served[-1]["roi"] = out["roi_logit"].detach()[..., 0] > 0
 
+    def graph(self, i):
+        """The reference's graph of pool batch i: the static graph, or each
+        sample's rows of the table."""
+        if not self.per_sample_graph:
+            return self.knn
+        return self.knn[self.pool[i]["obj_idx"]]
+
     def _step(self):
         batch = self.pool[self.steps % len(self.pool)]
         self.steps += 1
@@ -123,7 +144,7 @@ class Loop:
         elapsed = time.perf_counter() - t0
         images = n * self.t["batch"]
         self.rate = images / elapsed
-        return {"train_images_per_s": self.rate}, images, 0
+        return {self.t.get("rate_metric", "train_images_per_s"): self.rate}, images, 0
 
     def instrumented(self):
         ctx, dev = self.ctx, self.ctx.device
@@ -173,7 +194,7 @@ class Loop:
         tr_ = self._trainer(quant)
         losses, grad1, out1 = [], None, None
         for i in range(self.t["checked_steps"]):
-            losses.append(tr_.step(self.pool[i], self.knn, forced=served[i]))
+            losses.append(tr_.step(self.pool[i], self.graph(i), forced=served[i]))
             if i == 0:
                 grad1, out1 = _norms(tr_.grads()), tr_.out
         change = _norms({k: p.detach() - self.state0[k] for k, p in tr_.net.named_parameters()})
@@ -184,7 +205,7 @@ class Loop:
     def _step1_outputs(self, forced, quant):
         """The reference's outputs of step 1's forward, gathering at `forced`."""
         tr_ = self._trainer(quant)
-        out = tr_.forward(self.pool[0], self.knn, forced=forced)
+        out = tr_.forward(self.pool[0], self.graph(0), forced=forced)
         del tr_
         common.free(self.ctx.device)
         return out

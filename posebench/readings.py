@@ -40,7 +40,7 @@ def change_witness(d) -> dict:
     def run(quant):
         tr_ = d._trainer(quant)
         for i in range(steps):
-            tr_.step(d.pool[i], d.knn, forced=served[i])
+            tr_.step(d.pool[i], d.graph(i), forced=served[i])
             if i == 0:
                 g1 = {k: v.detach().float().clone() for k, v in tr_.grads().items()}
         ch = {k: (p.detach() - d.state0[k]).float() for k, p in tr_.net.named_parameters()}

@@ -1,15 +1,16 @@
 """Plain PyTorch reference of the CheckerPose network, in float32.
 
 A frozen, self-contained copy of the published architecture as the benchmark
-runs it: HRNet-w18 or ResNet-34 features, the init net (1x1 conv to one 8x8
-map a keypoint, two EdgeConvs, a dense head), then one up-block and one
-refine block a stage (patch-embed gather at the current cells, two dense
-layers, three EdgeConvs, a query MLP) and the seg head. Parameter names
-follow the measured program's `state_dict`, so the benchmark loads the
-weights it made into both.
+runs it: the features of the backbone the configuration names (the module
+`backbones/<name>.py`, found by `backbones.load`), the init net (1x1 conv
+to one 8x8 map a keypoint, two EdgeConvs, a dense head), then one up-block
+and one refine block a stage (patch-embed gather at the current cells, two
+dense layers, three EdgeConvs, a query MLP) and the seg head. Parameter
+names follow the measured program's `state_dict`, so the benchmark loads
+the weights it made into both.
 
-It imports nothing but torch. Every product is f32 with TF32 off
-(`set_reference_flags`). Two things the program does not do:
+It imports nothing but torch and its backbones. Every product is f32 with
+TF32 off (`set_reference_flags`). Two things the program does not do:
 
 * `forward(..., forced=...)` reads the refine stages' cells and RoI mask
   from given ids (the served ones) instead of its own decisions, so every
@@ -29,14 +30,14 @@ over (B, N, K) for an EdgeConv's.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-BACKBONE_DIMS = {"hrnet_w18": (128, 256, 512, 1024), "resnet34": (64, 128, 256, 512)}
+from posebench.reference import backbones
 
 
 def set_reference_flags() -> None:
@@ -213,116 +214,6 @@ class Bottleneck(nn.Module):
         return F.relu(self.conv3(self.conv2(self.conv1(x))) + r)
 
 
-class HRNetW18(nn.Module):
-    """HRNet-w18: stem, 4 bottlenecks, then stages of 1 / 4 / 3 modules of
-    4 basic blocks a branch (widths 18 / 36 / 72 / 144) with full fusion,
-    and one bottleneck a branch to 128 / 256 / 512 / 1024 channels."""
-    widths = (18, 36, 72, 144)
-    modules_per_stage = (1, 4, 3)
-
-    def __init__(self):
-        super().__init__()
-        self.stem1 = ConvBNAct(3, 64, 3, 2)
-        self.stem2 = ConvBNAct(64, 64, 3, 2)
-        c = 64
-        for k in range(4):
-            self.add_module(f"layer1_block{k}", Bottleneck(c, 64))
-            c = 256
-        chans = [c]
-        for s in range(3):
-            ws = self.widths[:s + 2]
-            for b in range(s + 1):
-                if chans[b] != ws[b]:
-                    self.add_module(f"t{s}_adapt{b}", ConvBNAct(chans[b], ws[b], 3, 1))
-            self.add_module(f"t{s}_new", ConvBNAct(chans[-1], ws[-1], 3, 2))
-            chans = list(ws)
-            for m in range(self.modules_per_stage[s]):
-                mod = nn.Module()
-                for b, w in enumerate(ws):
-                    for k in range(4):
-                        mod.add_module(f"branch{b}_block{k}", BasicBlock(w, w))
-                fuse = nn.Module()
-                for i in range(len(ws)):
-                    for j in range(len(ws)):
-                        if j > i:
-                            fuse.add_module(f"up_{j}_to_{i}",
-                                            ConvBNAct(ws[j], ws[i], 1, relu=False))
-                        for t in range(i - j):
-                            last = t == i - j - 1
-                            fuse.add_module(f"down_{j}_to_{i}_{t}", ConvBNAct(
-                                ws[j], ws[i] if last else ws[j], 3, 2, relu=not last))
-                mod.add_module("fuse", fuse)
-                self.add_module(f"stage{s + 2}_module{m}", mod)
-        for b, w in enumerate(self.widths):
-            self.add_module(f"incre{b}", Bottleneck(w, 32 * 2 ** b))
-
-    def _module(self, mod, xs):
-        n = len(xs)
-        ys = []
-        for b, x in enumerate(xs):
-            for k in range(4):
-                x = getattr(mod, f"branch{b}_block{k}")(x)
-            ys.append(x)
-        outs = []
-        for i in range(n):
-            acc = 0
-            for j in range(n):
-                if j == i:
-                    y = ys[j]
-                elif j > i:
-                    y = F.interpolate(getattr(mod.fuse, f"up_{j}_to_{i}")(ys[j]),
-                                      scale_factor=2 ** (j - i), mode="nearest")
-                else:
-                    y = ys[j]
-                    for t in range(i - j):
-                        y = getattr(mod.fuse, f"down_{j}_to_{i}_{t}")(y)
-                acc = acc + y
-            outs.append(F.relu(acc))
-        return outs
-
-    def forward(self, x) -> List[torch.Tensor]:
-        x = run(self, lambda v: self.stem2(self.stem1(v)), x)
-        for k in range(4):
-            x = run(self, getattr(self, f"layer1_block{k}"), x)
-        xs = [x]
-        for s in range(3):
-            new = []
-            for b in range(s + 1):
-                adapt = getattr(self, f"t{s}_adapt{b}", None)
-                new.append(xs[b] if adapt is None else adapt(xs[b]))
-            new.append(getattr(self, f"t{s}_new")(xs[-1]))
-            xs = new
-            for m in range(self.modules_per_stage[s]):
-                mod = getattr(self, f"stage{s + 2}_module{m}")
-                xs = list(run(self, lambda *v, mod=mod: tuple(self._module(mod, list(v))), *xs))
-        return [run(self, getattr(self, f"incre{b}"), x) for b, x in enumerate(xs)]
-
-
-class ResNet34(nn.Module):
-    """torchvision's ResNet-34 features at strides 4 / 8 / 16 / 32 (a 7x7/2
-    stem, a 3x3/2 max pool, 3 / 4 / 6 / 3 basic blocks)."""
-    stages = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
-
-    def __init__(self):
-        super().__init__()
-        self.stem = ConvBNAct(3, 64, 7, 2)
-        cin = 64
-        for s, (w, n, stride) in enumerate(self.stages):
-            for b in range(n):
-                self.add_module(f"layer{s + 1}_block{b}",
-                                BasicBlock(cin, w, stride if b == 0 else 1))
-                cin = w
-
-    def forward(self, x):
-        x = run(self, lambda v: F.max_pool2d(self.stem(v), 3, 2, padding=1), x)
-        feats = []
-        for s, (_, n, _) in enumerate(self.stages):
-            for b in range(n):
-                x = run(self, getattr(self, f"layer{s + 1}_block{b}"), x)
-            feats.append(x)
-        return feats
-
-
 def gather_rows(y, knn):
     """y (B, N, C) at a static (N, K) or per-sample (B, N, K) graph -> (B, N, K, C)."""
     if knn.dim() == 2:
@@ -357,8 +248,9 @@ class InitNet(nn.Module):
     def __init__(self, npoint, backbone, res_log2=3, num_graph=2, slope=0.2):
         super().__init__()
         self.num_graph = num_graph
-        self.backbone = HRNetW18() if backbone == "hrnet_w18" else ResNet34()
-        self.conv1x1_0 = Conv2d(BACKBONE_DIMS[backbone][-1], npoint, 1, bias=True)
+        backbone_module = backbones.load(backbone)
+        self.backbone = backbone_module.Features()
+        self.conv1x1_0 = Conv2d(backbone_module.DIMS[-1], npoint, 1, bias=True)
         for i in range(num_graph):
             self.add_module(f"graph_{i}", EdgeConv(64, 64, slope))
         self.mlp = Dense(64, 1 + 2 * res_log2)
@@ -459,7 +351,7 @@ class PoseNet(nn.Module):
         super().__init__()
         self.res_log2 = res_log2
         self.init_net = InitNet(npoint, backbone, 3, init_num_graph_module, graph_leaky_slope)
-        dims = BACKBONE_DIMS[backbone]
+        dims = backbones.load(backbone).DIMS
         for i in range(res_log2 - 3):
             cin = dims[-1] if i == 0 else num_filters + dims[-i - 1]
             self.add_module(f"up_{i}", UpBlock(cin, num_filters, i == 0))

@@ -8,10 +8,9 @@ import pytest
 import torch
 
 from posebench import harness
-from posebench.tests.tiny import tiny_cell
+from posebench.tests.tiny import tiny_cell, workloads
 
-WORKLOADS = ("hr18_lmo.serve_b512", "res34_lm.eval_b512", "hr18_lmo.serve_open",
-             "hr18_lmo.train_b128")
+WORKLOADS = workloads()
 
 
 def _readings(cell, seed, seconds, device):

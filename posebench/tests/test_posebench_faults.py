@@ -7,11 +7,23 @@ import pytest
 import torch
 
 from posebench import faults, harness
-from posebench.tests.tiny import tiny_cell
+from posebench.tests.tiny import tiny_cell, workloads
 
-INFERENCE = ("hr18_lmo.serve_b512", "res34_lm.eval_b512", "hr18_lmo.serve_open")
-CASES = ([(w, f) for w in INFERENCE for f in ("altered_pose", "altered_bit", "half_batch")]
-         + [("hr18_lmo.train_b128", f) for f in ("half_batch", "unchanged")])
+# the faults each kind of loop can have
+TRAINING_FAULTS = ("half_batch", "unchanged")
+PER_SAMPLE_TRAINING_FAULTS = TRAINING_FAULTS + ("other_objects",)
+INFERENCE_FAULTS = ("altered_pose", "altered_bit", "half_batch")
+WORKLOADS = workloads()
+
+
+def _faults(workload):
+    cell = harness.load_cell(workload)
+    if cell.traffic["loop"] != "train":
+        return INFERENCE_FAULTS
+    return PER_SAMPLE_TRAINING_FAULTS if cell.config["objects"] > 1 else TRAINING_FAULTS
+
+
+CASES = [(w, f) for w in WORKLOADS for f in _faults(w)]
 
 
 @pytest.mark.parametrize("workload,fault", CASES)
@@ -23,7 +35,7 @@ def test_a_fault_makes_the_run_not_correct(workload, fault):
     assert not result["correct"], checks
 
 
-@pytest.mark.parametrize("workload", INFERENCE + ("hr18_lmo.train_b128",))
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_the_same_run_without_a_fault_is_correct(workload):
     result, checks = harness.run(tiny_cell(workload), 23, 0.5, False, torch.device("cpu"),
                                  time.perf_counter())

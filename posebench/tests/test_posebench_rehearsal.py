@@ -6,10 +6,9 @@ import numpy as np
 import pytest
 
 from posebench import capture, harness
-from posebench.tests.tiny import run_tiny
+from posebench.tests.tiny import run_tiny, workloads
 
-WORKLOADS = [w["name"] for w in json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-             ["workloads"]]
+WORKLOADS = workloads()
 HOST_READERS = {"forward_ms.pose", "solver_ms.pose", "queue_wait_ms.open", "batch_crops.open"}
 
 

@@ -4,6 +4,7 @@ traffic cut to a few batches or steps, and its own limits."""
 from __future__ import annotations
 
 import copy
+import json
 import time
 
 import torch
@@ -22,6 +23,13 @@ TINY_TRAFFIC = {
                    "mean_crops_per_s": 48, "shapes": [8, 16, 32], "max_batch": 32,
                    "trace_warm_s": 0.2, "trace_s": 0.5, "drain_s": 10.0},
 }
+
+
+def workloads():
+    """Every cell of BENCHMARK.json: a cell that a later change adds is
+    rehearsed, faulted and controlled with no edit to the tests."""
+    bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
+    return [w["name"] for w in bench["workloads"]]
 
 
 def tiny_cell(name: str) -> harness.Cell:

@@ -20,6 +20,13 @@ each entry is a slice of it, transformed:
   whatever the precision (bfloat16 moved the refine logits by 34% of their
   norm, float8 by 63%), and no comparison could tell them apart.
 
+A reference module may declare the draws of its own tensors instead, in a
+class attribute `draws` that maps a tensor's name to the (lo, hi) of a
+uniform draw: a LayerNorm's scale or a layer scale, which the kernel rule
+would draw at a fan-in of 1. A backbone's file declares them for its own
+modules (`reference/backbones/`); the rules above hold for every tensor
+that no module declares.
+
 `center_heads` then moves the RoI bit's and the seg channels' biases so that
 the reference's median logit of each is 0 on a few crops: random weights
 otherwise mark every keypoint of every crop in or out of the RoI alike,
@@ -42,23 +49,35 @@ BN_RANGES = {"weight": (0.8, 1.2), "bias": (-0.1, 0.1), "running_mean": (-0.1, 0
 RESIDUAL_SCALE = 0.1
 
 
+def _kind(m: torch.nn.Module, mname: str, pname: str, t, residual) -> tuple:
+    """How tensor `pname` of module `mname` is drawn: ("uniform", lo, hi) or
+    ("kernel", fan_in)."""
+    declared = getattr(m, "draws", {})
+    if pname in declared:
+        return ("uniform", *declared[pname])
+    if isinstance(m, ref.BatchNorm):
+        lo, hi = BN_RANGES[pname]
+        last = mname.endswith((".conv2.bn", ".conv3.bn")) and mname[:-3] in residual
+        if pname == "weight" and last:
+            return "uniform", RESIDUAL_SCALE * lo, RESIDUAL_SCALE * hi
+        return "uniform", lo, hi
+    if pname == "bias":
+        return "uniform", -0.05, 0.05
+    if isinstance(m, ref.ConvTranspose2d):
+        return "kernel", t.shape[0] * t[0, 0].numel()
+    return "kernel", t[0].numel()                  # Conv2d (O, I, k, k), Dense (O, I)
+
+
 def _entries(net: torch.nn.Module):
-    """(name, shape, kind, fan_in) for every parameter and buffer."""
+    """(name, shape, kind) for every parameter and buffer, in the order of
+    `named_modules()`: the order of the draw."""
     residual = {f"{n}.conv2" for n, m in net.named_modules() if isinstance(m, ref.BasicBlock)}
     residual |= {f"{n}.conv3" for n, m in net.named_modules() if isinstance(m, ref.Bottleneck)}
     for mname, m in net.named_modules():
         tensors = list(m.named_parameters(recurse=False)) + list(m.named_buffers(recurse=False))
         for pname, t in tensors:
             name = f"{mname}.{pname}" if mname else pname
-            if isinstance(m, ref.BatchNorm):
-                last = mname.endswith((".conv2.bn", ".conv3.bn")) and mname[:-3] in residual
-                yield name, tuple(t.shape), ("bn", pname, last), 0
-            elif pname == "bias":
-                yield name, tuple(t.shape), ("bias",), 0
-            elif isinstance(m, ref.ConvTranspose2d):
-                yield name, tuple(t.shape), ("kernel",), t.shape[0] * t[0, 0].numel()
-            else:                                      # Conv2d (O, I, k, k), Dense (O, I)
-                yield name, tuple(t.shape), ("kernel",), t[0].numel()
+            yield name, tuple(t.shape), _kind(m, mname, pname, t, residual)
 
 
 def make_state_dict(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
@@ -66,22 +85,20 @@ def make_state_dict(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
     with torch.device("meta"):
         net = ref.build(cfg, device="meta")
     entries = list(_entries(net))
-    total = sum(math.prod(shape) for _, shape, _, _ in entries)
+    total = sum(math.prod(shape) for _, shape, _ in entries)
     gen = torch.Generator(device=device).manual_seed(seed)
     u = torch.rand(total, generator=gen, device=device)
     out, at = {}, 0
-    for name, shape, kind, fan_in in entries:
+    for name, shape, kind in entries:
         n = math.prod(shape)
         s = u[at:at + n].view(shape)
         at += n
         if kind[0] == "kernel":
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            std = math.sqrt(1.0 / kind[1]) / _TRUNC_STD
             p = _LO + s * (1.0 - 2.0 * _LO)
             out[name] = torch.erfinv(2.0 * p - 1.0) * (math.sqrt(2.0) * std)
         else:
-            lo, hi = BN_RANGES[kind[1]] if kind[0] == "bn" else (-0.05, 0.05)
-            if kind[0] == "bn" and kind[1] == "weight" and kind[2]:
-                lo, hi = RESIDUAL_SCALE * lo, RESIDUAL_SCALE * hi
+            lo, hi = kind[1:]
             out[name] = lo + (hi - lo) * s
     return out
 
